@@ -1,0 +1,246 @@
+"""Prime-field arithmetic over 16-bit limbs held in ``torch.int32`` tensors.
+
+A field element is ``L`` little-endian 16-bit limbs (``L = ceil(bits/16)``,
+``R = 2**(16*L) > p``); arrays of elements are ``[..., L]`` tensors of dtype
+``torch.int32``.  These are the same integers as :mod:`tpu_zk.fields.arith`'s
+``uint32`` arrays: torch has no uint32 arithmetic on the CPU, and every limb
+fits in 16 bits, so int32 is a lossless carrier.  Products of two limbs
+overflow int32, so the plain operations below upcast to int64 inside and
+carry every lazy limb with a sequential signed carry pass.
+
+Device data is in Montgomery form, ``mont(x) = x*R mod p``.  ``mont_mul``,
+``to_mont`` and ``from_mont`` go through the K1 kernel wrapper
+(:mod:`.kernels`), which launches the CUDA kernel for CUDA tensors and runs
+the plain version for CPU tensors.  Everything else here is plain torch on
+whatever device its inputs lie on.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from . import kernels
+from .primes import PRIMES, SERIALIZED_BYTES
+
+LIMB_BITS = 16
+MASK = 0xFFFF
+BASE = 1 << LIMB_BITS
+
+
+def _limbs_of_int(x: int, n: int) -> tuple[int, ...]:
+    return tuple((x >> (LIMB_BITS * i)) & MASK for i in range(n))
+
+
+@functools.lru_cache(maxsize=None)
+def _const(limbs: tuple[int, ...], device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """A small constant limb vector on ``device`` (cached; never mutate it)."""
+    return torch.tensor(limbs, dtype=dtype, device=device)
+
+
+def _ints_to_limbs(values: list[int], L: int) -> np.ndarray:
+    """Canonical ints -> [N, L] int32 limbs (one bytes join, no per-limb loop)."""
+    buf = b"".join(v.to_bytes(2 * L, "little") for v in values)
+    return np.frombuffer(buf, dtype="<u2").reshape(-1, L).astype(np.int32)
+
+
+@dataclass(frozen=True, eq=False)
+class FieldCtx:
+    """Static parameters of a prime field in limb representation."""
+
+    name: str
+    p: int
+    L: int
+    nbytes: int  # serialized (arkworks bigint) byte width
+    n0inv: int  # -p^{-1} mod 2^16
+    R: int  # 2^(16L) mod p
+    R2: int  # R^2 mod p
+    Rinv: int
+    n0inv32: int  # -p^{-1} mod 2^32, for the kernels' 32-bit-limb CIOS
+
+    def __hash__(self):
+        return hash(self.name)
+
+    def __eq__(self, other):
+        return isinstance(other, FieldCtx) and self.name == other.name
+
+    # -- host-side helpers ---------------------------------------------------
+    def to_mont_int(self, x: int) -> int:
+        return (x % self.p) * self.R % self.p
+
+    def limbs(self, x: int, device, dtype: torch.dtype = torch.int32) -> torch.Tensor:
+        """Cached [L] limb constant of the canonical int ``x`` on ``device``."""
+        return _const(_limbs_of_int(x % self.p, self.L), torch.device(device), dtype)
+
+    def array(self, values, mont: bool = True, device=None) -> torch.Tensor:
+        """Host ints -> [N, L] int32 tensor (Montgomery form by default)."""
+        vals = [self.to_mont_int(v) if mont else v % self.p for v in values]
+        return torch.from_numpy(_ints_to_limbs(vals, self.L)).to(device or "cpu")
+
+    def scalar(self, value: int, mont: bool = True, device=None) -> torch.Tensor:
+        """Host int -> [L] int32 tensor."""
+        v = self.to_mont_int(value) if mont else value % self.p
+        return torch.tensor(_limbs_of_int(v, self.L), dtype=torch.int32, device=device or "cpu")
+
+    def to_ints(self, t: torch.Tensor, mont: bool = True):
+        """[..., L] limbs -> canonical python ints (one int for a single [L])."""
+        a = t.detach().to("cpu").numpy().reshape(-1, self.L)
+        buf = a[:, ::-1].astype(">u2").tobytes()
+        per = self.L * 2
+        scale = self.Rinv if mont else 1
+        p = self.p
+        out = [int.from_bytes(buf[i : i + per], "big") * scale % p for i in range(0, len(buf), per)]
+        return out[0] if t.dim() == 1 else out
+
+    # -- serialization (transcript parity) ----------------------------------
+    def to_bytes_be(self, x: int) -> bytes:
+        """arkworks ``into_bigint().to_bytes_be()`` equivalent."""
+        return int(x % self.p).to_bytes(self.nbytes, "big")
+
+    def from_le_bytes_mod_order(self, b: bytes) -> int:
+        return int.from_bytes(b, "little") % self.p
+
+
+@functools.lru_cache(maxsize=None)
+def field_ctx(name: str) -> FieldCtx:
+    p = PRIMES[name]
+    L = (p.bit_length() + LIMB_BITS - 1) // LIMB_BITS
+    # one conditional subtract in CIOS and in add/sub needs 2p < B^L; the
+    # kernels' 32-bit limbs (L/2 of them) span the same R = 2^(16L)
+    assert 2 * p < (1 << (LIMB_BITS * L)) and L % 2 == 0
+    R = (1 << (LIMB_BITS * L)) % p
+    return FieldCtx(
+        name=name,
+        p=p,
+        L=L,
+        nbytes=SERIALIZED_BYTES[name],
+        n0inv=(-pow(p, -1, BASE)) % BASE,
+        R=R,
+        R2=R * R % p,
+        Rinv=pow(R, -1, p),
+        n0inv32=(-pow(p, -1, 1 << 32)) % (1 << 32),
+    )
+
+
+# ---------------------------------------------------------------------------
+# limb machinery (plain torch over [..., W] tensors)
+# ---------------------------------------------------------------------------
+
+
+def p_limbs(ctx: FieldCtx, width: int, device) -> torch.Tensor:
+    """The modulus as ``width`` int64 limbs on ``device`` (cached)."""
+    return _const(_limbs_of_int(ctx.p, width), torch.device(device), torch.int64)
+
+
+def _propagate(t: torch.Tensor, width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Signed lazy limbs [..., W] -> (strict int32 limbs [..., width], carry out).
+
+    Each limb may be any int64 (negative included) as long as the running
+    carry fits; the carry out is what exceeds B^width (negative on borrow).
+    """
+    t = t.to(torch.int64)
+    W = t.shape[-1]
+    out = torch.empty(t.shape[:-1] + (width,), dtype=torch.int32, device=t.device)
+    c = torch.zeros(t.shape[:-1], dtype=torch.int64, device=t.device)
+    for k in range(width):
+        v = c + t[..., k] if k < W else c
+        out[..., k] = v & MASK
+        c = v >> LIMB_BITS
+    return out, c
+
+
+def carry_propagate(t: torch.Tensor, out_width: int | None = None) -> torch.Tensor:
+    """Lazy limbs (value < B^out_width) -> strict int32 limbs.
+
+    The output is ``max(W, out_width)`` limbs wide (``W + 1`` by default),
+    as in :func:`tpu_zk.fields.arith.carry_propagate`.
+    """
+    W = t.shape[-1]
+    width = max(W, out_width if out_width is not None else W + 1)
+    return _propagate(t, width)[0]
+
+
+def cond_sub_p(ctx: FieldCtx, t: torch.Tensor) -> torch.Tensor:
+    """If value >= p subtract p.  t: strict [..., W >= L] with value < 2p.
+    Returns canonical [..., L]."""
+    W = t.shape[-1]
+    d, borrow = _propagate(t.to(torch.int64) - p_limbs(ctx, W, t.device), W)
+    return torch.where((borrow < 0)[..., None], t[..., : ctx.L], d[..., : ctx.L]).to(torch.int32)
+
+
+def add(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Modular add of canonical elements [..., L] (broadcasting)."""
+    s = carry_propagate(a.to(torch.int64) + b.to(torch.int64), ctx.L + 1)
+    return cond_sub_p(ctx, s)
+
+
+def sub(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Modular sub of canonical elements [..., L]: a - b + p, then reduce."""
+    p = p_limbs(ctx, ctx.L, a.device)
+    s = carry_propagate(a.to(torch.int64) - b.to(torch.int64) + p, ctx.L + 1)
+    return cond_sub_p(ctx, s)
+
+
+def mont_mul(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product a*b*R^-1 mod p of canonical [..., L] (broadcasting).
+
+    Goes through the K1 wrapper: the CUDA kernel for CUDA tensors, the plain
+    CIOS for CPU tensors.
+    """
+    if b.dim() == 1 and a.dim() > 1:
+        return kernels.mont_mul(ctx, a.reshape(-1, ctx.L).contiguous(), b.contiguous()).reshape(a.shape)
+    a, b = torch.broadcast_tensors(a, b)
+    flat_a = a.reshape(-1, ctx.L).contiguous()
+    flat_b = b.reshape(-1, ctx.L).contiguous()
+    return kernels.mont_mul(ctx, flat_a, flat_b).reshape(a.shape)
+
+
+def redc_wide(ctx: FieldCtx, t: torch.Tensor) -> torch.Tensor:
+    """Montgomery-reduce a strict wide value: returns value * R^-1 mod p.
+
+    t: strict limbs [..., W] with L <= W and value < R*p.
+    """
+    L = ctx.L
+    W = t.shape[-1]
+    n = p_limbs(ctx, L, t.device)
+    acc =torch.zeros(t.shape[:-1] + (W + L + 2,), dtype=torch.int64, device=t.device)
+    acc[..., :W] = t
+    for i in range(L):
+        m = (acc[..., i] * ctx.n0inv) & MASK
+        acc[..., i : i + L] += m[..., None] * n
+        acc[..., i + 1] += acc[..., i] >> LIMB_BITS  # limb i is 0 mod B now
+    # acc[L:] holds (t + M*p) / R < 2p
+    strict = carry_propagate(acc[..., L:], W + 2)[..., : L + 1]
+    return cond_sub_p(ctx, strict)
+
+
+def to_mont(ctx: FieldCtx, a: torch.Tensor) -> torch.Tensor:
+    return mont_mul(ctx, a, ctx.limbs(ctx.R2, a.device))
+
+
+def from_mont(ctx: FieldCtx, a: torch.Tensor) -> torch.Tensor:
+    # a * 1 * R^-1: the plain form, through the same K1 kernel
+    return mont_mul(ctx, a, ctx.limbs(1, a.device))
+
+
+def sum_mod(ctx: FieldCtx, a: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Exact modular sum along ``axis`` of canonical Montgomery elements.
+
+    One int64 limb sum (exact for fewer than 2^47 terms), one carry pass,
+    one wide Montgomery reduction and a scale back by R^2.  Modular addition
+    is associative, so the result equals any other summation order's.
+    """
+    if axis < 0:
+        axis += a.dim()
+    lazy = a.sum(dim=axis, dtype=torch.int64)
+    return reduce_wide_to_mont(ctx, carry_propagate(lazy, ctx.L + 4))
+
+
+def reduce_wide_to_mont(ctx: FieldCtx, wide: torch.Tensor) -> torch.Tensor:
+    """Strict wide limbs [..., W] holding a sum of Montgomery residues
+    (value < R*p) -> canonical Montgomery element [..., L]."""
+    plain = redc_wide(ctx, wide)  # (sum)*R * R^-1 = sum, plain form
+    return mont_mul(ctx, plain, ctx.limbs(ctx.R2, wide.device))

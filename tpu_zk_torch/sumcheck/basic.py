@@ -1,0 +1,103 @@
+"""Basic non-interactive sumcheck over a multilinear evaluation table.
+
+The table lives on its device (CUDA or CPU).  Each prover round is one K2
+launch (fold + per-block sums) and a small reduction to the next round's
+two half-sums, then a copy of those two elements to the host, where the
+Fiat-Shamir transcript absorbs their bytes and squeezes the next challenge.
+Transcript bytes and proofs equal :mod:`tpu_zk.sumcheck.basic`'s, whose
+fused device-sponge prover produces the same bytes as its host loop.
+
+Transcript absorb order: full initial polynomial bytes (BE), claimed sum
+(BE), then per round the 2-point univariate (BE) before squeezing the
+challenge.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..fields.arith import FieldCtx
+from ..poly.multilinear import MultilinearPolynomial, fold_and_half_sums, sum_halves
+from ..transcript.fiat_shamir import Transcript
+
+
+@dataclass
+class SumcheckProof:
+    initial_polynomial: MultilinearPolynomial
+    initial_claimed_sum: int
+    round_univariate_polynomials: list[MultilinearPolynomial]  # 2-entry eval form
+
+
+class Prover:
+    def __init__(self, polynomial: MultilinearPolynomial):
+        self.ctx = polynomial.ctx
+        self.initial_polynomial = polynomial
+        self.initial_claimed_sum = polynomial.sum()
+        self.transcript = Transcript()
+
+    @classmethod
+    def init(cls, ctx: FieldCtx, values, device=None) -> "Prover":
+        return cls(MultilinearPolynomial.from_ints(ctx, values, device=device))
+
+    def prove(self) -> SumcheckProof:
+        ctx = self.ctx
+        self.transcript.append(self.initial_polynomial.convert_to_bytes())
+        self.transcript.append(ctx.to_bytes_be(self.initial_claimed_sum))
+
+        table = self.initial_polynomial.table
+        n = self.initial_polynomial.number_of_variables
+        round_polys = []
+        univ_m = sum_halves(ctx, table)  # [2, L] Montgomery
+        for rnd in range(n):
+            round_polys.append(MultilinearPolynomial(ctx, univ_m))
+            u0, u1 = ctx.to_ints(univ_m)
+            self.transcript.append(ctx.to_bytes_be(u0) + ctx.to_bytes_be(u1))
+            challenge = self.transcript.random_challenge_as_field_element(ctx)
+            if rnd < n - 1:
+                r = ctx.scalar(challenge, device=table.device)
+                table, univ_m = fold_and_half_sums(ctx, table, r)
+
+        return SumcheckProof(
+            initial_polynomial=self.initial_polynomial,
+            initial_claimed_sum=self.initial_claimed_sum,
+            round_univariate_polynomials=round_polys,
+        )
+
+
+class Verifier:
+    def __init__(self):
+        self.transcript = Transcript()
+
+    @classmethod
+    def init(cls) -> "Verifier":
+        return cls()
+
+    def verify(self, proof: SumcheckProof) -> bool:
+        ctx = proof.initial_polynomial.ctx
+        p = ctx.p
+        if len(proof.round_univariate_polynomials) != proof.initial_polynomial.number_of_variables:
+            return False
+
+        current_claim = proof.initial_claimed_sum % p
+        self.transcript.append(proof.initial_polynomial.convert_to_bytes())
+        self.transcript.append(ctx.to_bytes_be(proof.initial_claimed_sum))
+
+        # one host copy for every round univariate
+        tables = [u.table.cpu() for u in proof.round_univariate_polynomials]
+        all_ints = ctx.to_ints(torch.stack(tables)) if tables else []
+        pairs = [all_ints[2 * i : 2 * i + 2] for i in range(len(all_ints) // 2)]
+
+        challenges = []
+        for u0, u1 in pairs:
+            if (u0 + u1) % p != current_claim:
+                return False
+            self.transcript.append(ctx.to_bytes_be(u0) + ctx.to_bytes_be(u1))
+            r = self.transcript.random_challenge_as_field_element(ctx)
+            challenges.append(r)
+            # the 2-point eval-form univariate at r: u0 + r*(u1-u0)
+            current_claim = (u0 + r * (u1 - u0)) % p
+
+        final_evaluation = proof.initial_polynomial.evaluate(challenges)
+        return final_evaluation == current_claim
