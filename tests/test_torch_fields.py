@@ -5,13 +5,17 @@ same numpy limb arrays (``tpu_zk_torch.utils.convert``).  All of this is
 integer arithmetic, so every comparison is exact (tolerance zero).  On the
 CPU the kernel wrappers run their plain versions; the CUDA kernels are held
 against those plain versions on the card by ``chip_smoke.py``.
+
+Every compiled tpu_zk computation runs once, in :func:`reference`, which the
+module fixture calls in a fresh process (``tests/jax_reference.py``); the
+tests here compare the port against its results.
 """
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from tests import jax_reference
 from tpu_zk.fields import arith as jarith
 from tpu_zk.fields import primes as jprimes
 from tpu_zk_torch.fields import arith, kernels, primes
@@ -19,6 +23,9 @@ from tpu_zk_torch.poly import multilinear
 from tpu_zk_torch.utils.convert import limbs_from_numpy, limbs_to_numpy
 
 FIELDS = ["bn254_fq", "bn254_fr", "bls12_381_fr", "bls12_381_fq"]
+FOLD_FIELDS = ["bn254_fr", "bls12_381_fq"]
+MXU_FIELDS = ["bn254_fr", "bls12_381_fr"]
+MXU_SCALARS = [987654321987654321, 0, 1, -1]
 
 
 def limbs_np(vals, width):
@@ -34,13 +41,8 @@ def edges(ctx):
     return [0, 1, ctx.p - 1, ctx.R % ctx.p]
 
 
-def pair(arr):
-    """The same numpy limbs as a JAX array and as a port tensor."""
-    return jnp.asarray(arr), limbs_from_numpy(arr)
-
-
-def same(jax_out, port_out):
-    return np.array_equal(np.asarray(jax_out), limbs_to_numpy(port_out))
+def same(want, port_out):
+    return np.array_equal(np.asarray(want), limbs_to_numpy(port_out))
 
 
 def operands(name, seed):
@@ -50,7 +52,115 @@ def operands(name, seed):
     e = edges(ctx)
     xs = rand_vals(ctx, 48, rng) + [x for x in e for _ in e]
     ys = rand_vals(ctx, 48, rng) + [y for _ in e for y in e]
-    return ctx, jarith.field_ctx(name), limbs_np(xs, ctx.L), limbs_np(ys, ctx.L)
+    return ctx, limbs_np(xs, ctx.L), limbs_np(ys, ctx.L)
+
+
+def _mont_scalar(ctx, c):
+    return limbs_np([ctx.to_mont_int(c)], ctx.L)[0]
+
+
+def _carry_input(name):
+    ctx = arith.field_ctx(name)
+    rng = np.random.default_rng(5)
+    W = ctx.L + 2
+    lazy = rng.integers(0, 1 << 31, size=(40, W), dtype=np.uint32)
+    lazy[0] = 0xFFFF  # a carry that ripples through every limb
+    lazy[1] = 0
+    return lazy
+
+
+def _wide_input(name):
+    """(wide limbs [n, L+4], their values): L+4 limbs, below the contract's R*p."""
+    ctx = arith.field_ctx(name)
+    rng = np.random.default_rng(6)
+    bound = 1 << (16 * (ctx.L + 4))
+    vals = [int.from_bytes(rng.bytes(2 * ctx.L + 8), "little") for _ in range(30)]
+    vals += [0, 1, ctx.p, bound - 1]
+    return limbs_np(vals, ctx.L + 4), vals
+
+
+def _pallas_operands():
+    ctx = arith.field_ctx("bn254_fr")
+    rng = np.random.default_rng(7)
+    vals = rand_vals(ctx, 2048 - 16, rng)
+    e = edges(ctx)
+    return limbs_np(vals + [x for x in e for _ in e], ctx.L), limbs_np(vals[::-1] + [y for _ in e for y in e], ctx.L)
+
+
+def _fold_inputs(name, n, seed):
+    ctx = arith.field_ctx(name)
+    rng = np.random.default_rng(seed)
+    table = limbs_np([ctx.to_mont_int(v) for v in rand_vals(ctx, n, rng)], ctx.L)
+    return ctx, table, _mont_scalar(ctx, 123456789123456789)
+
+
+def _mxu_operands(name):
+    """Random elements plus the edge values, and the broadcast Montgomery scalars."""
+    ctx = arith.field_ctx(name)
+    a = limbs_np(rand_vals(ctx, 240, np.random.default_rng(13)) + edges(ctx) * 4, ctx.L)
+    return a, [_mont_scalar(ctx, c) for c in MXU_SCALARS]
+
+
+def reference() -> dict:
+    """Everything the tests compare against, computed by tpu_zk (in the
+    child process): the field operations per field, and the Pallas kernels
+    in interpret mode -- mont_mul_pallas, fold_pallas, fold_mxu_lm, and the
+    caller-less digit-matmul kernels fold_mxu_pallas (on a [2, 512, L]
+    table) and mul_const_mxu_pallas (each scalar of MXU_SCALARS)."""
+    import jax.numpy as jnp
+
+    from tpu_zk.fields.mxu_mul import fold_mxu_lm, fold_mxu_pallas, mul_const_mxu_pallas
+    from tpu_zk.fields.pallas_kernels import fold_pallas, mont_mul_pallas
+    from tpu_zk.poly.multilinear import fold_and_half_sums
+
+    def host(*xs):
+        return tuple(np.asarray(x) for x in xs)
+
+    out = {}
+    for name in FIELDS:
+        jctx = jarith.field_ctx(name)
+        ctx, a, b = operands(name, 1)
+        ja, jb, js = jnp.asarray(a), jnp.asarray(b), jnp.asarray(_mont_scalar(ctx, 987654321987654321))
+        out["mont_mul", name] = host(jarith.mont_mul(jctx, ja, jb), jarith.mont_mul(jctx, ja, js))
+        _, a, b = operands(name, 2)
+        out["add_sub", name] = host(jarith.add(jctx, jnp.asarray(a), jnp.asarray(b)),
+                                    jarith.sub(jctx, jnp.asarray(a), jnp.asarray(b)))
+        _, a, _ = operands(name, 3)
+        out["to_from_mont", name] = host(jarith.to_mont(jctx, jnp.asarray(a)), jarith.from_mont(jctx, jnp.asarray(a)))
+        _, a, b = operands(name, 4)
+        both = np.concatenate([a, b])
+        out["sum_mod", name] = host(jarith.sum_mod(jctx, jnp.asarray(both)),
+                                    jarith.sum_mod(jctx, jnp.asarray(both.reshape(2, -1, ctx.L)), 1))
+        lazy = _carry_input(name)
+        out["carry", name] = np.asarray(jarith.carry_propagate(jnp.asarray(lazy), lazy.shape[1] + 2))
+        out["reduce_wide", name] = np.asarray(jarith.reduce_wide_to_mont(jctx, jnp.asarray(_wide_input(name)[0])))
+
+    jctx = jarith.field_ctx("bn254_fr")
+    a, b = _pallas_operands()
+    out["mont_mul_pallas"] = np.asarray(mont_mul_pallas(jctx, jnp.asarray(a), jnp.asarray(b), 1024))
+    for name in FOLD_FIELDS:
+        _, table, r = _fold_inputs(name, 256, 8)
+        out["fold_and_half_sums", name] = host(*fold_and_half_sums(jarith.field_ctx(name), jnp.asarray(table),
+                                                                   jnp.asarray(r)))
+    _, table, r = _fold_inputs("bn254_fr", 2048, 9)
+    out["fold_pallas"] = host(*fold_pallas(jctx, jnp.asarray(table)[None], jnp.asarray(r), 256))
+    _, table, r = _fold_inputs("bn254_fr", 1 << 10, 10)
+    folded, sums = fold_mxu_lm(jctx, jnp.asarray(table).T[None], jnp.asarray(r), 128)
+    out["fold_mxu_lm"] = host(folded[0].T, sums)
+    _, table, r = _fold_inputs("bn254_fr", 1 << 10, 12)
+    out["fold_mxu_pallas"] = host(*fold_mxu_pallas(jctx, jnp.asarray(table.reshape(2, 512, -1)), jnp.asarray(r), 128))
+    for name in MXU_FIELDS:
+        a, scalars = _mxu_operands(name)
+        out["mul_const_mxu_pallas", name] = [
+            np.asarray(mul_const_mxu_pallas(jarith.field_ctx(name), jnp.asarray(a), jnp.asarray(s), 128))
+            for s in scalars
+        ]
+    return out
+
+
+@pytest.fixture(scope="module")
+def ref():
+    return jax_reference.call("tests.test_torch_fields", "reference")
 
 
 def test_constants_match_tpu_zk():
@@ -65,100 +175,74 @@ def test_constants_match_tpu_zk():
 
 
 @pytest.mark.parametrize("name", FIELDS)
-def test_mont_mul_matches_tpu_zk(name):
-    ctx, jctx, a, b = operands(name, 1)
-    (ja, ta), (jb, tb) = pair(a), pair(b)
-    assert same(jarith.mont_mul(jctx, ja, jb), arith.mont_mul(ctx, ta, tb))
+def test_mont_mul_matches_tpu_zk(name, ref):
+    ctx, a, b = operands(name, 1)
+    ta, tb = limbs_from_numpy(a), limbs_from_numpy(b)
+    want_ab, want_as = ref["mont_mul", name]
+    assert same(want_ab, arith.mont_mul(ctx, ta, tb))
     # broadcast scalar, on either side
-    s = limbs_np([ctx.to_mont_int(987654321987654321)], ctx.L)[0]
-    assert same(jarith.mont_mul(jctx, ja, jnp.asarray(s)), arith.mont_mul(ctx, ta, limbs_from_numpy(s)))
-    assert same(jarith.mont_mul(jctx, ja, jnp.asarray(s)), arith.mont_mul(ctx, limbs_from_numpy(s), ta))
+    s = limbs_from_numpy(_mont_scalar(ctx, 987654321987654321))
+    assert same(want_as, arith.mont_mul(ctx, ta, s))
+    assert same(want_as, arith.mont_mul(ctx, s, ta))
 
 
 @pytest.mark.parametrize("name", FIELDS)
-def test_add_sub_match_tpu_zk(name):
-    ctx, jctx, a, b = operands(name, 2)
-    (ja, ta), (jb, tb) = pair(a), pair(b)
-    assert same(jarith.add(jctx, ja, jb), arith.add(ctx, ta, tb))
-    assert same(jarith.sub(jctx, ja, jb), arith.sub(ctx, ta, tb))
+def test_add_sub_match_tpu_zk(name, ref):
+    ctx, a, b = operands(name, 2)
+    ta, tb = limbs_from_numpy(a), limbs_from_numpy(b)
+    want_add, want_sub = ref["add_sub", name]
+    assert same(want_add, arith.add(ctx, ta, tb))
+    assert same(want_sub, arith.sub(ctx, ta, tb))
 
 
 @pytest.mark.parametrize("name", FIELDS)
-def test_to_from_mont_match_tpu_zk(name):
-    ctx, jctx, a, _ = operands(name, 3)
-    ja, ta = pair(a)
-    assert same(jarith.to_mont(jctx, ja), arith.to_mont(ctx, ta))
-    assert same(jarith.from_mont(jctx, ja), arith.from_mont(ctx, ta))
+def test_to_from_mont_match_tpu_zk(name, ref):
+    ctx, a, _ = operands(name, 3)
+    ta = limbs_from_numpy(a)
+    want_to, want_from = ref["to_from_mont", name]
+    assert same(want_to, arith.to_mont(ctx, ta))
+    assert same(want_from, arith.from_mont(ctx, ta))
     assert arith.from_mont(ctx, arith.to_mont(ctx, ta)).equal(ta)
 
 
 @pytest.mark.parametrize("name", FIELDS)
-def test_sum_mod_matches_tpu_zk(name):
-    ctx, jctx, a, b = operands(name, 4)
+def test_sum_mod_matches_tpu_zk(name, ref):
+    ctx, a, b = operands(name, 4)
     both = np.concatenate([a, b])
-    jt, tt = pair(both)
-    assert same(jarith.sum_mod(jctx, jt), arith.sum_mod(ctx, tt))
-    halves = both.reshape(2, -1, ctx.L)
-    jh, th = pair(halves)
-    assert same(jarith.sum_mod(jctx, jh, 1), arith.sum_mod(ctx, th, axis=1))
+    want_all, want_halves = ref["sum_mod", name]
+    assert same(want_all, arith.sum_mod(ctx, limbs_from_numpy(both)))
+    assert same(want_halves, arith.sum_mod(ctx, limbs_from_numpy(both.reshape(2, -1, ctx.L)), axis=1))
 
 
 @pytest.mark.parametrize("name", FIELDS)
-def test_carry_propagate_matches_tpu_zk(name):
+def test_carry_propagate_matches_tpu_zk(name, ref):
+    lazy = _carry_input(name)
+    got = arith.carry_propagate(torch.from_numpy(lazy.astype(np.int64)), lazy.shape[1] + 2)
+    assert same(ref["carry", name], got)
+
+
+@pytest.mark.parametrize("name", FIELDS)
+def test_reduce_wide_to_mont_matches_tpu_zk(name, ref):
     ctx = arith.field_ctx(name)
-    rng = np.random.default_rng(5)
-    W = ctx.L + 2
-    lazy = rng.integers(0, 1 << 31, size=(40, W), dtype=np.uint32)
-    lazy[0] = 0xFFFF  # a carry that ripples through every limb
-    lazy[1] = 0
-    got = arith.carry_propagate(torch.from_numpy(lazy.astype(np.int64)), W + 2)
-    assert same(jarith.carry_propagate(jnp.asarray(lazy), W + 2), got)
-
-
-@pytest.mark.parametrize("name", FIELDS)
-def test_reduce_wide_to_mont_matches_tpu_zk(name):
-    ctx, jctx = arith.field_ctx(name), jarith.field_ctx(name)
-    rng = np.random.default_rng(6)
-    bound = 1 << (16 * (ctx.L + 4))  # L+4 limbs, below the contract's R*p
-    vals = [int.from_bytes(rng.bytes(2 * ctx.L + 8), "little") for _ in range(30)]
-    vals += [0, 1, ctx.p, bound - 1]
-    wide = limbs_np(vals, ctx.L + 4)
-    jw, tw = pair(wide)
-    got = arith.reduce_wide_to_mont(ctx, tw)
-    assert same(jarith.reduce_wide_to_mont(jctx, jw), got)
+    wide, vals = _wide_input(name)
+    got = arith.reduce_wide_to_mont(ctx, limbs_from_numpy(wide))
+    assert same(ref["reduce_wide", name], got)
     assert ctx.to_ints(got, mont=False) == [v % ctx.p for v in vals]
 
 
-def test_mont_mul_plain_matches_pallas_kernel():
+def test_mont_mul_plain_matches_pallas_kernel(ref):
     """K1's plain version against mont_mul_pallas in interpret mode."""
-    from tpu_zk.fields.pallas_kernels import mont_mul_pallas
-
-    ctx, jctx = arith.field_ctx("bn254_fr"), jarith.field_ctx("bn254_fr")
-    rng = np.random.default_rng(7)
-    vals = rand_vals(ctx, 2048 - 16, rng)
-    e = edges(ctx)
-    a = limbs_np(vals + [x for x in e for _ in e], ctx.L)
-    b = limbs_np(vals[::-1] + [y for _ in e for y in e], ctx.L)
-    (ja, ta), (jb, tb) = pair(a), pair(b)
-    assert same(mont_mul_pallas(jctx, ja, jb, 1024), kernels.mont_mul_plain(ctx, ta, tb))
+    ctx = arith.field_ctx("bn254_fr")
+    a, b = _pallas_operands()
+    assert same(ref["mont_mul_pallas"], kernels.mont_mul_plain(ctx, limbs_from_numpy(a), limbs_from_numpy(b)))
 
 
-def _fold_inputs(name, n, seed):
-    ctx, jctx = arith.field_ctx(name), jarith.field_ctx(name)
-    rng = np.random.default_rng(seed)
-    table = limbs_np([ctx.to_mont_int(v) for v in rand_vals(ctx, n, rng)], ctx.L)
-    r = limbs_np([ctx.to_mont_int(123456789123456789)], ctx.L)[0]
-    return ctx, jctx, table, r
-
-
-@pytest.mark.parametrize("name", ["bn254_fr", "bls12_381_fq"])
-def test_fold_and_half_sums_match_tpu_zk(name):
+@pytest.mark.parametrize("name", FOLD_FIELDS)
+def test_fold_and_half_sums_match_tpu_zk(name, ref):
     """K2's plain version, and the round built on it, against tpu_zk's round."""
-    from tpu_zk.poly.multilinear import fold_and_half_sums as j_fold_and_half_sums
-
-    ctx, jctx, table, r = _fold_inputs(name, 256, 8)
-    (jt, tt), (jr, tr) = pair(table), pair(r)
-    ref_folded, ref_univ = j_fold_and_half_sums(jctx, jt, jr)
+    ctx, table, r = _fold_inputs(name, 256, 8)
+    tt, tr = limbs_from_numpy(table), limbs_from_numpy(r)
+    ref_folded, ref_univ = ref["fold_and_half_sums", name]
     folded, univ = multilinear.fold_and_half_sums(ctx, tt, tr)
     assert same(ref_folded, folded)
     assert same(ref_univ, univ)
@@ -166,29 +250,44 @@ def test_fold_and_half_sums_match_tpu_zk(name):
     assert same(ref_folded, plain_folded[0])
 
 
-def test_fold_plain_matches_fold_pallas():
+def test_fold_plain_matches_fold_pallas(ref):
     """K2's plain version against fold_pallas (interpret mode), block sums included."""
-    from tpu_zk.fields.pallas_kernels import fold_pallas
-
-    ctx, jctx, table, r = _fold_inputs("bn254_fr", 2048, 9)
-    (jt, tt), (jr, tr) = pair(table), pair(r)
-    ref_folded, ref_sums = fold_pallas(jctx, jt[None], jr, 256)
-    folded, sums = kernels.fold_plain(ctx, tt[None], tr, 256)
+    ctx, table, r = _fold_inputs("bn254_fr", 2048, 9)
+    folded, sums = kernels.fold_plain(ctx, limbs_from_numpy(table)[None], limbs_from_numpy(r), 256)
     assert sums.shape == (1, 4, ctx.L + 2)
+    ref_folded, ref_sums = ref["fold_pallas"]
     assert same(ref_folded, folded)
     assert same(ref_sums, sums)
 
 
-def test_fold_plain_matches_fold_mxu_lm():
+def test_fold_plain_matches_fold_mxu_lm(ref):
     """K2's plain version against the limb-major digit-matmul fold (interpret mode)."""
-    from tpu_zk.fields.mxu_mul import fold_mxu_lm
-
-    ctx, jctx, table, r = _fold_inputs("bn254_fr", 1 << 10, 10)
-    (jt, tt), (jr, tr) = pair(table), pair(r)
-    ref_folded, ref_sums = fold_mxu_lm(jctx, jt.T[None], jr, 128)
-    folded, sums = kernels.fold_plain(ctx, tt[None], tr, 128)
-    assert same(ref_folded[0].T, folded[0])
+    ctx, table, r = _fold_inputs("bn254_fr", 1 << 10, 10)
+    folded, sums = kernels.fold_plain(ctx, limbs_from_numpy(table)[None], limbs_from_numpy(r), 128)
+    ref_folded, ref_sums = ref["fold_mxu_lm"]
+    assert same(ref_folded, folded[0])
     assert same(ref_sums, sums)
+
+
+def test_fold_plain_matches_fold_mxu_pallas(ref):
+    """K2's plain version against the caller-less [B, 2T, L] digit-matmul
+    fold (interpret mode), batch rows and block sums included."""
+    ctx, table, r = _fold_inputs("bn254_fr", 1 << 10, 12)
+    folded, sums = kernels.fold_plain(ctx, limbs_from_numpy(table.reshape(2, 512, ctx.L)), limbs_from_numpy(r), 128)
+    assert sums.shape == (2, 2, ctx.L + 2)
+    ref_folded, ref_sums = ref["fold_mxu_pallas"]
+    assert same(ref_folded, folded)
+    assert same(ref_sums, sums)
+
+
+@pytest.mark.parametrize("name", MXU_FIELDS)
+def test_mont_mul_plain_broadcast_matches_mul_const_mxu_pallas(name, ref):
+    """K1's plain version with a broadcast [L] Montgomery scalar against the
+    caller-less digit-matmul constant multiply (interpret mode)."""
+    ctx = arith.field_ctx(name)
+    a, scalars = _mxu_operands(name)
+    for s, want in zip(scalars, ref["mul_const_mxu_pallas", name]):
+        assert same(want, kernels.mont_mul_plain(ctx, limbs_from_numpy(a), limbs_from_numpy(s)))
 
 
 @pytest.mark.parametrize("T,block", [(1, 1), (3, 2), (37, 8), (64, 64)])
@@ -228,3 +327,9 @@ def test_wrappers_check_inputs():
         kernels.mont_mul(ctx, meta, meta)
     with pytest.raises(ValueError):
         kernels.fold(ctx, meta[None], torch.empty(ctx.L, dtype=torch.int32, device="meta"), 2)
+    with pytest.raises(ValueError):
+        kernels.addsub(ctx, meta, meta, "add")
+    with pytest.raises(TypeError):
+        kernels.addsub(ctx, a.to(torch.int64), a, "sub")
+    with pytest.raises(ValueError):
+        kernels.addsub(ctx, a, a[:2], "add")

@@ -3,6 +3,10 @@
 On the CPU the port runs its kernels' plain versions; proofs, transcript
 bytes and field elements must equal tpu_zk's exactly (integer arithmetic,
 tolerance zero).  Inputs come from ``numpy.random.default_rng``.
+
+Every compiled tpu_zk computation runs once, in :func:`reference`, which the
+module fixture calls in a fresh process (``tests/jax_reference.py``); the
+host-only tpu_zk transcript and Keccak run here.
 """
 
 import subprocess
@@ -11,12 +15,10 @@ import sys
 import numpy as np
 import pytest
 
+from tests import jax_reference
 from tpu_zk.fields.arith import field_ctx as j_field_ctx
-from tpu_zk.poly.multilinear import MultilinearPolynomial as JMLE
-from tpu_zk.sumcheck import basic as jbasic
 from tpu_zk.transcript import fiat_shamir as jfs
 from tpu_zk.transcript.keccak import keccak256 as j_keccak256
-from tpu_zk.utils import serialize as jser
 from tpu_zk_torch.fields.arith import field_ctx
 from tpu_zk_torch.poly.multilinear import MultilinearPolynomial
 from tpu_zk_torch.sumcheck import basic
@@ -25,6 +27,8 @@ from tpu_zk_torch.transcript.keccak import Keccak256, keccak256, keccak256_plain
 from tpu_zk_torch.utils import serialize
 
 SLICE_LOG_N = 10
+SLICE_FIELDS = ["bn254_fq", "bn254_fr"]
+PARTIAL_VARS = (0, 2, 5)
 
 
 def rand_vals(p, n, seed):
@@ -80,30 +84,14 @@ def test_basic_transcript_first_challenge_golden():
 # -- polynomials ---------------------------------------------------------------
 
 
-def test_multilinear_matches_tpu_zk():
-    ctx, jctx = field_ctx("bn254_fr"), j_field_ctx("bn254_fr")
-    vals = rand_vals(ctx.p, 64, 3)
-    port, ref = MultilinearPolynomial.from_ints(ctx, vals), JMLE.from_ints(jctx, vals)
-    assert port.sum() == ref.sum()
-    assert port.convert_to_bytes() == ref.convert_to_bytes()
-    point = rand_vals(ctx.p, 6, 4)
-    assert port.evaluate(point) == ref.evaluate(point)
-    for var in (0, 2, 5):
-        assert port.partial_evaluate(var, point[var]).to_ints() == ref.partial_evaluate(var, point[var]).to_ints()
+def _mle_inputs():
+    """(values of a 6-variable MLE, a point) over BN254 Fr."""
+    p = field_ctx("bn254_fr").p
+    return rand_vals(p, 64, 3), rand_vals(p, 6, 4)
 
 
-# -- the whole slice -----------------------------------------------------------
-
-
-@pytest.fixture(scope="module", params=["bn254_fq", "bn254_fr"])
-def slice_proofs(request):
-    """One proof of the same 2^10 table from each package (tpu_zk runs once per field)."""
-    name = request.param
-    ctx = field_ctx(name)
-    vals = rand_vals(ctx.p, 1 << SLICE_LOG_N, 5)
-    port = serialize.sumcheck_proof_to_json(basic.Prover.init(ctx, vals).prove())
-    ref = jser.sumcheck_proof_to_json(jbasic.Prover.init(j_field_ctx(name), vals).prove())
-    return port, ref
+def _slice_values(name):
+    return rand_vals(field_ctx(name).p, 1 << SLICE_LOG_N, 5)
 
 
 def _tamper(proof):
@@ -111,19 +99,78 @@ def _tamper(proof):
     return proof
 
 
+def reference(port_jsons: dict) -> dict:
+    """Everything the tests compare against, computed by tpu_zk (in the
+    child process): an MLE's sum, bytes, evaluation and partial
+    evaluations; per field the proof JSON of the slice's table, and
+    tpu_zk's verdicts on the port's proof (as is, tampered)."""
+    from tpu_zk.poly.multilinear import MultilinearPolynomial as JMLE
+    from tpu_zk.sumcheck import basic as jbasic
+    from tpu_zk.utils import serialize as jser
+
+    vals, point = _mle_inputs()
+    mle = JMLE.from_ints(j_field_ctx("bn254_fr"), vals)
+    out = {"mle": {
+        "sum": mle.sum(), "bytes": mle.convert_to_bytes(), "evaluate": mle.evaluate(point),
+        "partial": [mle.partial_evaluate(var, point[var]).to_ints() for var in PARTIAL_VARS],
+    }}
+    for name in SLICE_FIELDS:
+        port = port_jsons[name]
+        out[name] = {
+            "json": jser.sumcheck_proof_to_json(jbasic.Prover.init(j_field_ctx(name), _slice_values(name)).prove()),
+            "port_verdicts": [jbasic.Verifier.init().verify(change(jser.sumcheck_proof_from_json(port)))
+                              for change in (lambda q: q, _tamper)],
+        }
+    return out
+
+
+@pytest.fixture(scope="module")
+def port_jsons():
+    """The port's proof JSON of the slice's 2^10 table, per field."""
+    return {name: serialize.sumcheck_proof_to_json(basic.Prover.init(field_ctx(name), _slice_values(name)).prove())
+            for name in SLICE_FIELDS}
+
+
+@pytest.fixture(scope="module")
+def ref(port_jsons):
+    return jax_reference.call("tests.test_torch_sumcheck", "reference", port_jsons)
+
+
+def test_multilinear_matches_tpu_zk(ref):
+    ctx = field_ctx("bn254_fr")
+    vals, point = _mle_inputs()
+    port, want = MultilinearPolynomial.from_ints(ctx, vals), ref["mle"]
+    assert port.sum() == want["sum"]
+    assert port.convert_to_bytes() == want["bytes"]
+    assert port.evaluate(point) == want["evaluate"]
+    for var, partial in zip(PARTIAL_VARS, want["partial"]):
+        assert port.partial_evaluate(var, point[var]).to_ints() == partial
+
+
+# -- the whole slice -----------------------------------------------------------
+
+
+@pytest.fixture(params=SLICE_FIELDS)
+def slice_proofs(request, port_jsons, ref):
+    """One proof of the same 2^10 table from each package, and tpu_zk's
+    verdicts on the port's."""
+    name = request.param
+    return port_jsons[name], ref[name]["json"], ref[name]["port_verdicts"]
+
+
 def test_proof_json_equals_tpu_zk(slice_proofs):
-    port, ref = slice_proofs
+    port, ref, _ = slice_proofs
     assert port == ref
 
 
 def test_port_proof_verifies_in_tpu_zk(slice_proofs):
-    port, _ = slice_proofs
-    assert jbasic.Verifier.init().verify(jser.sumcheck_proof_from_json(port))
-    assert not jbasic.Verifier.init().verify(_tamper(jser.sumcheck_proof_from_json(port)))
+    """tpu_zk accepts the port's proof and rejects it tampered."""
+    _, _, verdicts = slice_proofs
+    assert verdicts == [True, False]
 
 
 def test_tpu_zk_proof_verifies_in_port(slice_proofs):
-    _, ref = slice_proofs
+    _, ref, _ = slice_proofs
     assert basic.Verifier.init().verify(serialize.sumcheck_proof_from_json(ref))
     assert not basic.Verifier.init().verify(_tamper(serialize.sumcheck_proof_from_json(ref)))
 
@@ -141,6 +188,8 @@ def test_import_without_jax():
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import tpu_zk_torch.sumcheck.basic, tpu_zk_torch.utils.serialize, tpu_zk_torch.utils.convert\n"
+        "import tpu_zk_torch.gkr.sparse, tpu_zk_torch.sumcheck.gkr_sumcheck, tpu_zk_torch.circuit.layered\n"
+        "import tpu_zk_torch.poly.composed, tpu_zk_torch.poly.univariate, tpu_zk_torch.gkr.breakdown\n"
         "assert not [m for m in sys.modules if m == 'tpu_zk' or m.startswith('tpu_zk.')], 'imported tpu_zk'\n"
     )
     done = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)

@@ -71,6 +71,8 @@ def kernel_library() -> ctypes.CDLL:
     ptr, i64, i32, u32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_uint32
     lib.tzk_mont_mul.argtypes = [ptr, ptr, ptr, i64, i32, i32, ptr, u32, ptr]
     lib.tzk_mont_mul.restype = ctypes.c_int
+    lib.tzk_addsub.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, ptr, ptr]
+    lib.tzk_addsub.restype = ctypes.c_int
     lib.tzk_fold.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i64, i32, ptr, u32, ptr]
     lib.tzk_fold.restype = ctypes.c_int
     return lib

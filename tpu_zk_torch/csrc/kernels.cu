@@ -18,7 +18,16 @@
 //   writes its own partial row.  Bound by device memory: 3 half-table passes
 //   (read lo, read hi, write folded) -- one table read plus a half-table write.
 //
-// Both launch on the caller's stream, allocate nothing, and return
+// K3 tzk_addsub -- elementwise modular add or subtract.
+//   Replaces tpu_zk/fields/pallas_kernels.py:176 addsub_pallas and :294
+//   addsub_lm_pallas (bodies _add_rows :123, _sub_rows :130).  One thread per
+//   element: repack to N 32-bit limbs, one carry (or borrow) chain and one
+//   conditional correction by p, store.  The TPU kernels propagated 16-bit
+//   carries across limb rows; here a 32-bit add-with-carry chain in registers
+//   does it.  Bound by device memory: it moves 3 element tables (2 with a
+//   broadcast b) for ~2N integer adds per element.
+//
+// All launch on the caller's stream, allocate nothing, and return
 // cudaGetLastError() so the Python wrapper can raise on a refused launch.
 
 #include <cuda_runtime.h>
@@ -30,6 +39,7 @@
 namespace tzk {
 
 constexpr int kMulThreads = 256;
+constexpr int kAddSubThreads = 256;
 constexpr int kFoldThreads = 256;
 constexpr int kWarps = kFoldThreads / 32;
 
@@ -43,6 +53,23 @@ __global__ void __launch_bounds__(kMulThreads)
   load_elem<N>(a + i * 2 * N, x);
   load_elem<N>(b + i * b_stride, y);
   mont_mul<N>(z, x, y, f);
+  store_elem<N>(out + i * 2 * N, z);
+}
+
+template <int N, bool kSub>
+__global__ void __launch_bounds__(kAddSubThreads)
+    addsub_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b, uint32_t* __restrict__ out,
+                  int64_t m, int64_t b_stride, FieldParams f) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  uint32_t x[N], y[N], z[N];
+  load_elem<N>(a + i * 2 * N, x);
+  load_elem<N>(b + i * b_stride, y);
+  if (kSub) {
+    mod_sub<N>(z, x, y, f);
+  } else {
+    mod_add<N>(z, x, y, f);
+  }
   store_elem<N>(out + i * 2 * N, z);
 }
 
@@ -136,6 +163,41 @@ int tzk_mont_mul(const void* a, const void* b, void* out, int64_t m, int b_broad
       break;
     case 24:
       mont_mul_kernel<12><<<(unsigned)blocks, kMulThreads, 0, s>>>(pa, pb, po, m, b_stride, f);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// a, out: [m, L] int32 16-bit limbs; b: [m, L], or [L] when b_broadcast.
+// out = a - b mod p when subtract, else a + b mod p.
+int tzk_addsub(const void* a, const void* b, void* out, int64_t m, int b_broadcast, int subtract, int L,
+               const uint32_t* p32, void* stream) {
+  using namespace tzk;
+  const FieldParams f = make_params(p32, L / 2, 0);
+  const int64_t blocks = (m + kAddSubThreads - 1) / kAddSubThreads;
+  if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidConfiguration;
+  const int64_t b_stride = b_broadcast ? 0 : L;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* pa = static_cast<const uint32_t*>(a);
+  const auto* pb = static_cast<const uint32_t*>(b);
+  auto* po = static_cast<uint32_t*>(out);
+  const unsigned grid = (unsigned)blocks;
+  switch (L) {
+    case 16:
+      if (subtract) {
+        addsub_kernel<8, true><<<grid, kAddSubThreads, 0, s>>>(pa, pb, po, m, b_stride, f);
+      } else {
+        addsub_kernel<8, false><<<grid, kAddSubThreads, 0, s>>>(pa, pb, po, m, b_stride, f);
+      }
+      break;
+    case 24:
+      if (subtract) {
+        addsub_kernel<12, true><<<grid, kAddSubThreads, 0, s>>>(pa, pb, po, m, b_stride, f);
+      } else {
+        addsub_kernel<12, false><<<grid, kAddSubThreads, 0, s>>>(pa, pb, po, m, b_stride, f);
+      }
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -9,10 +9,10 @@ overflow int32, so the plain operations below upcast to int64 inside and
 carry every lazy limb with a sequential signed carry pass.
 
 Device data is in Montgomery form, ``mont(x) = x*R mod p``.  ``mont_mul``,
-``to_mont`` and ``from_mont`` go through the K1 kernel wrapper
-(:mod:`.kernels`), which launches the CUDA kernel for CUDA tensors and runs
-the plain version for CPU tensors.  Everything else here is plain torch on
-whatever device its inputs lie on.
+``to_mont`` and ``from_mont`` go through the K1 kernel wrapper, ``add``,
+``sub`` and ``neg`` through the K3 wrapper (:mod:`.kernels`); each launches
+its CUDA kernel for CUDA tensors and runs its plain version for CPU tensors.
+Everything else here is plain torch on whatever device its inputs lie on.
 """
 
 from __future__ import annotations
@@ -75,6 +75,10 @@ class FieldCtx:
         """Cached [L] limb constant of the canonical int ``x`` on ``device``."""
         return _const(_limbs_of_int(x % self.p, self.L), torch.device(device), dtype)
 
+    def one_mont(self, device) -> torch.Tensor:
+        """Cached [L] Montgomery one (R mod p) on ``device``."""
+        return self.limbs(self.R, device)
+
     def array(self, values, mont: bool = True, device=None) -> torch.Tensor:
         """Host ints -> [N, L] int32 tensor (Montgomery form by default)."""
         vals = [self.to_mont_int(v) if mont else v % self.p for v in values]
@@ -99,6 +103,9 @@ class FieldCtx:
     def to_bytes_be(self, x: int) -> bytes:
         """arkworks ``into_bigint().to_bytes_be()`` equivalent."""
         return int(x % self.p).to_bytes(self.nbytes, "big")
+
+    def to_bytes_le(self, x: int) -> bytes:
+        return int(x % self.p).to_bytes(self.nbytes, "little")
 
     def from_le_bytes_mod_order(self, b: bytes) -> int:
         return int.from_bytes(b, "little") % self.p
@@ -171,17 +178,30 @@ def cond_sub_p(ctx: FieldCtx, t: torch.Tensor) -> torch.Tensor:
     return torch.where((borrow < 0)[..., None], t[..., : ctx.L], d[..., : ctx.L]).to(torch.int32)
 
 
+def _elementwise(kernel, ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor, *args) -> torch.Tensor:
+    """Apply a K1/K3 wrapper to [..., L] operands (broadcasting): a broadcast
+    [L] ``b`` stays one element; any other broadcast is materialized."""
+    if b.dim() == 1 and a.dim() > 1:
+        return kernel(ctx, a.reshape(-1, ctx.L).contiguous(), b.contiguous(), *args).reshape(a.shape)
+    a, b = torch.broadcast_tensors(a, b)
+    flat_a = a.reshape(-1, ctx.L).contiguous()
+    flat_b = b.reshape(-1, ctx.L).contiguous()
+    return kernel(ctx, flat_a, flat_b, *args).reshape(a.shape)
+
+
 def add(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Modular add of canonical elements [..., L] (broadcasting)."""
-    s = carry_propagate(a.to(torch.int64) + b.to(torch.int64), ctx.L + 1)
-    return cond_sub_p(ctx, s)
+    """Modular add of canonical elements [..., L] (broadcasting), through K3."""
+    return _elementwise(kernels.addsub, ctx, a, b, "add")
 
 
 def sub(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Modular sub of canonical elements [..., L]: a - b + p, then reduce."""
-    p = p_limbs(ctx, ctx.L, a.device)
-    s = carry_propagate(a.to(torch.int64) - b.to(torch.int64) + p, ctx.L + 1)
-    return cond_sub_p(ctx, s)
+    """Modular sub of canonical elements [..., L] (broadcasting), through K3."""
+    return _elementwise(kernels.addsub, ctx, a, b, "sub")
+
+
+def neg(ctx: FieldCtx, a: torch.Tensor) -> torch.Tensor:
+    """p - a for a != 0, 0 for 0."""
+    return sub(ctx, torch.zeros_like(a), a)
 
 
 def mont_mul(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -190,12 +210,7 @@ def mont_mul(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     Goes through the K1 wrapper: the CUDA kernel for CUDA tensors, the plain
     CIOS for CPU tensors.
     """
-    if b.dim() == 1 and a.dim() > 1:
-        return kernels.mont_mul(ctx, a.reshape(-1, ctx.L).contiguous(), b.contiguous()).reshape(a.shape)
-    a, b = torch.broadcast_tensors(a, b)
-    flat_a = a.reshape(-1, ctx.L).contiguous()
-    flat_b = b.reshape(-1, ctx.L).contiguous()
-    return kernels.mont_mul(ctx, flat_a, flat_b).reshape(a.shape)
+    return _elementwise(kernels.mont_mul, ctx, a, b)
 
 
 def redc_wide(ctx: FieldCtx, t: torch.Tensor) -> torch.Tensor:
@@ -206,7 +221,7 @@ def redc_wide(ctx: FieldCtx, t: torch.Tensor) -> torch.Tensor:
     L = ctx.L
     W = t.shape[-1]
     n = p_limbs(ctx, L, t.device)
-    acc =torch.zeros(t.shape[:-1] + (W + L + 2,), dtype=torch.int64, device=t.device)
+    acc = torch.zeros(t.shape[:-1] + (W + L + 2,), dtype=torch.int64, device=t.device)
     acc[..., :W] = t
     for i in range(L):
         m = (acc[..., i] * ctx.n0inv) & MASK
@@ -244,3 +259,27 @@ def reduce_wide_to_mont(ctx: FieldCtx, wide: torch.Tensor) -> torch.Tensor:
     (value < R*p) -> canonical Montgomery element [..., L]."""
     plain = redc_wide(ctx, wide)  # (sum)*R * R^-1 = sum, plain form
     return mont_mul(ctx, plain, ctx.limbs(ctx.R2, wide.device))
+
+
+def mont_segment_sum(ctx: FieldCtx, vals: torch.Tensor, idx: torch.Tensor, size: int) -> torch.Tensor:
+    """Sum Montgomery elements ``vals [G, ..., L]`` into ``size`` buckets by
+    ``idx [G]`` -> ``[size, ..., L]`` canonical Montgomery (exact).
+
+    One int64 ``index_add_`` of the limbs (exact below 2^47 values per bucket;
+    integer atomics make it independent of order), then the carry and wide
+    reduction of :func:`sum_mod`.
+    """
+    lazy = torch.zeros((size,) + vals.shape[1:], dtype=torch.int64, device=vals.device)
+    lazy.index_add_(0, idx, vals.to(torch.int64))
+    return reduce_wide_to_mont(ctx, carry_propagate(lazy, ctx.L + 4))
+
+
+def lazy_to_ints(ctx: FieldCtx, lazy: torch.Tensor) -> list[int]:
+    """int64 lazy limb sums [..., L] of Montgomery elements (any device) ->
+    the canonical plain sums as host ints.
+
+    One copy to the host; the carry and the reduction mod p run on Python
+    ints.
+    """
+    rows = lazy.reshape(-1, lazy.shape[-1]).cpu().tolist()
+    return [sum(v << (LIMB_BITS * k) for k, v in enumerate(row)) * ctx.Rinv % ctx.p for row in rows]

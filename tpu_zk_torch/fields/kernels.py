@@ -1,4 +1,4 @@
-"""The field layer's two CUDA kernels: their wrappers and plain versions.
+"""The field layer's three CUDA kernels: their wrappers and plain versions.
 
 K1 ``mont_mul``: elementwise Montgomery product a*b*R^-1 mod p.
     Replaces ``tpu_zk/fields/pallas_kernels.py:142 mont_mul_pallas`` (CIOS
@@ -8,6 +8,9 @@ K2 ``fold``: fused sumcheck fold lo + r*(hi - lo) with per-block wide sums.
     Replaces ``tpu_zk/fields/pallas_kernels.py:222 fold_pallas`` and
     ``tpu_zk/fields/mxu_mul.py:296 fold_mxu_lm`` (and their caller-less twin
     ``mxu_mul.py:187 fold_mxu_pallas``), which compute the same function.
+K3 ``addsub``: elementwise modular add or subtract.
+    Replaces ``tpu_zk/fields/pallas_kernels.py:176 addsub_pallas`` and
+    ``:294 addsub_lm_pallas`` (bodies ``_add_rows`` :123, ``_sub_rows`` :130).
 
 Each wrapper runs its plain PyTorch version when its tensors lie on the CPU,
 and for CUDA tensors launches the kernel (sources in ``tpu_zk_torch/csrc``,
@@ -56,6 +59,19 @@ def mont_mul_plain(ctx: arith.FieldCtx, a: torch.Tensor, b: torch.Tensor) -> tor
     return arith.cond_sub_p(ctx, strict)
 
 
+def add_plain(ctx: arith.FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b mod p of canonical elements [..., L] (broadcasting), in int64."""
+    s = arith.carry_propagate(a.to(torch.int64) + b.to(torch.int64), ctx.L + 1)
+    return arith.cond_sub_p(ctx, s)
+
+
+def sub_plain(ctx: arith.FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a - b mod p of canonical elements [..., L]: a - b + p, then reduce."""
+    p = arith.p_limbs(ctx, ctx.L, a.device)
+    s = arith.carry_propagate(a.to(torch.int64) - b.to(torch.int64) + p, ctx.L + 1)
+    return arith.cond_sub_p(ctx, s)
+
+
 def fold_plain(ctx: arith.FieldCtx, flat: torch.Tensor, r: torch.Tensor, block: int):
     """Fold variable 0 of each row and sum the folded values block by block.
 
@@ -67,7 +83,7 @@ def fold_plain(ctx: arith.FieldCtx, flat: torch.Tensor, r: torch.Tensor, block: 
     B, N2, L = flat.shape
     T = N2 // 2
     lo, hi = flat[:, :T], flat[:, T:]
-    folded = arith.add(ctx, lo, mont_mul_plain(ctx, arith.sub(ctx, hi, lo), r))
+    folded = add_plain(ctx, lo, mont_mul_plain(ctx, sub_plain(ctx, hi, lo), r))
     G = -(-T // block)
     padded = torch.zeros((B, G * block, L), dtype=torch.int64, device=flat.device)
     padded[:, :T] = folded
@@ -145,6 +161,36 @@ def mont_mul(ctx: arith.FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Ten
 
 
 mont_mul.launches = 0
+
+
+def addsub(ctx: arith.FieldCtx, a: torch.Tensor, b: torch.Tensor, kind: str) -> torch.Tensor:
+    """K3: a [M, L] +/- b ([M, L] or broadcast [L]) -> [M, L], canonical int32.
+
+    ``kind`` is ``"add"`` or ``"sub"``, as for ``addsub_pallas``.
+    """
+    if kind not in ("add", "sub"):
+        raise ValueError(f"addsub: kind must be 'add' or 'sub', got {kind!r}")
+    _check_limbs("a", a, ctx.L)
+    _check_limbs("b", b, ctx.L)
+    if a.dim() != 2 or b.dim() not in (1, 2) or (b.dim() == 2 and b.shape != a.shape):
+        raise ValueError(f"addsub: shapes {tuple(a.shape)} {kind} {tuple(b.shape)}")
+    if _on_cpu(a, b):
+        return (add_plain if kind == "add" else sub_plain)(ctx, a, b)
+    out = torch.empty_like(a)
+    M = a.shape[0]
+    if M == 0:
+        return out
+    p32, _ = _launch_args(ctx)
+    rc = _build.kernel_library().tzk_addsub(
+        _ptr(a), _ptr(b), _ptr(out), ctypes.c_int64(M), ctypes.c_int(int(b.dim() == 1)),
+        ctypes.c_int(int(kind == "sub")), ctypes.c_int(ctx.L), p32, _stream(),
+    )
+    _raise_on(rc, "addsub")
+    addsub.launches += 1
+    return out
+
+
+addsub.launches = 0
 
 
 def fold(ctx: arith.FieldCtx, flat: torch.Tensor, r: torch.Tensor, block: int):

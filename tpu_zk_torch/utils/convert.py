@@ -1,14 +1,18 @@
-"""Limb tables across the package boundary, as numpy arrays.
+"""Limb tables and circuits across the package boundary, as numpy arrays.
 
 ``tpu_zk`` holds limbs as ``uint32`` arrays of 16-bit values; this package
 holds the same integers as ``torch.int32``.  Every value is below 2^16, so
-the conversion is a reinterpretation of the same bits.
+the conversion is a reinterpretation of the same bits.  A circuit crosses
+as each layer's numpy gate arrays.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..circuit.layered import Circuit, Layer
+from ..fields.arith import FieldCtx
 
 
 def limbs_from_numpy(arr: np.ndarray, device=None) -> torch.Tensor:
@@ -26,3 +30,10 @@ def limbs_to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype != torch.int32:
         raise TypeError(f"expected torch.int32 limbs, got {t.dtype}")
     return t.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def circuit_from_arrays(ctx: FieldCtx, layers) -> Circuit:
+    """Layers carrying numpy ``lefts``/``rights``/``outs``/``ops`` arrays
+    (output layer first; a ``tpu_zk`` ``Layer`` supplies them as they are)
+    -> this package's :class:`~tpu_zk_torch.circuit.layered.Circuit`."""
+    return Circuit(ctx, [Layer.from_arrays(l.lefts, l.rights, l.outs, l.ops) for l in layers])

@@ -1,17 +1,20 @@
-"""Basic-sumcheck proof (de)serialization.
+"""Proof (de)serialization: basic sumcheck and GKR.
 
-The JSON is byte for byte :func:`tpu_zk.utils.serialize.sumcheck_proof_to_json`'s:
-canonical JSON with hex-encoded field elements, independent of limb layout
-and device.
+The JSON is byte for byte :mod:`tpu_zk.utils.serialize`'s
+(``sumcheck_proof_to_json``, ``gkr_proof_to_json``): canonical JSON with
+hex-encoded field elements, independent of limb layout and device.
 """
 
 from __future__ import annotations
 
 import json
 
-from ..fields.arith import field_ctx
+from ..fields.arith import FieldCtx, field_ctx
+from ..gkr.protocol import Proof
 from ..poly.multilinear import MultilinearPolynomial
+from ..poly.univariate import DenseUnivariatePolynomial
 from ..sumcheck.basic import SumcheckProof
+from ..sumcheck.gkr_sumcheck import SumcheckProverProof
 
 FORMAT_VERSION = 1
 
@@ -44,4 +47,51 @@ def sumcheck_proof_from_json(data: str, device=None) -> SumcheckProof:
             MultilinearPolynomial.from_ints(ctx, [int(v, 16) for v in u], device=device)
             for u in obj["round_univariates"]
         ],
+    )
+
+
+def _sumcheck_prover_proof_obj(p: SumcheckProverProof):
+    return {
+        "claimed_sum": hex(p.claimed_sum),
+        "round_univariates": [[hex(c) for c in u.coefficients] for u in p.round_univariate_polynomials],
+        "random_challenges": [hex(c) for c in p.random_challenges],
+    }
+
+
+def _sumcheck_prover_proof_from(ctx: FieldCtx, obj) -> SumcheckProverProof:
+    return SumcheckProverProof(
+        claimed_sum=int(obj["claimed_sum"], 16),
+        round_univariate_polynomials=[
+            DenseUnivariatePolynomial(ctx, [int(c, 16) for c in u]) for u in obj["round_univariates"]
+        ],
+        random_challenges=[int(c, 16) for c in obj["random_challenges"]],
+    )
+
+
+def gkr_proof_to_json(proof: Proof, field_name: str) -> str:
+    return json.dumps(
+        {
+            "version": FORMAT_VERSION,
+            "kind": "gkr",
+            "field": field_name,
+            "circuit_output": [hex(v) for v in proof.circuit_output],
+            "claimed_sum": hex(proof.claimed_sum),
+            "sumcheck_proofs": [_sumcheck_prover_proof_obj(p) for p in proof.sumcheck_proofs],
+            "wb_evaluations": [hex(v) for v in proof.wb_evaluations],
+            "wc_evaluations": [hex(v) for v in proof.wc_evaluations],
+        }
+    )
+
+
+def gkr_proof_from_json(data: str) -> Proof:
+    obj = json.loads(data)
+    if obj.get("kind") != "gkr" or obj.get("version") != FORMAT_VERSION:
+        raise ValueError(f"not a version-{FORMAT_VERSION} GKR proof")
+    ctx = field_ctx(obj["field"])
+    return Proof(
+        circuit_output=[int(v, 16) for v in obj["circuit_output"]],
+        claimed_sum=int(obj["claimed_sum"], 16),
+        sumcheck_proofs=[_sumcheck_prover_proof_from(ctx, p) for p in obj["sumcheck_proofs"]],
+        wb_evaluations=[int(v, 16) for v in obj["wb_evaluations"]],
+        wc_evaluations=[int(v, 16) for v in obj["wc_evaluations"]],
     )
