@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""Run tpu_zk_torch's basic sumcheck and GKR on one CUDA card and check its kernels.
+"""Run tpu_zk_torch's basic sumcheck, GKR, MSM, KZG and succinct GKR on one CUDA card and check its kernels.
 
     python3 chip_smoke.py [--seed S]
 
 Phases, in order; any failure raises and the exit code is nonzero:
 
 1. require a CUDA card; print ``nvidia-smi``'s name and power limit;
-2. build the kernels (nvcc, sm_90a) and the host Keccak, timed;
+2. build the kernels (one nvcc per source, side by side, sm_90a), the host
+   Keccak and the host pairing engine, timed; print each kernel's registers
+   and spills as ptxas reported them; probe the card's rate of wide
+   (32 x 32 + 64 -> 64 bit) multiply-adds, the unit of the kernels'
+   operation bounds;
 3. K1 (Montgomery multiply) against its plain version, bit-exact, all four
    fields: 2^20 random elements, every pair of edge values, a broadcast scalar;
 4. K2 (fold + block sums) against its plain version, bit-exact: batch rows
@@ -31,7 +35,25 @@ Phases, in order; any failure raises and the exit code is nonzero:
 10. each kernel's time beside its plain version's, at the sumcheck's 2^24
    shapes and at a depth-24 GKR round's (K3 on 2^25 elements, K1 on 2^24
    pairs, K2 at B = 4, T = 2^23), each output bit-exact against the plain
-   version's.
+   version's;
+11. a GKR proof from host ints with no device argument: it must reach the
+   card (K1, K2 and K3 launch);
+12. K4a (MSM bucket accumulation) and K4b (weighted bucket totals) against
+   their plain versions as group elements, over BN254 and BLS12-381 G1, at
+   2^12 points with duplicates, P and -P, identity points, the scalars 0, 1,
+   r - 1 and 2^256 - 1, a ragged tail, fewer points than lanes and all-zero
+   scalars; ``msm_pippenger`` against the double-and-add MSM and host ints;
+13. succinct-GKR parity: the proof JSON from the card (bucket method forced)
+   equals the one from the CPU on a BLS12-381 two-layer circuit and a BN254
+   depth-6 mixed circuit; tampered proofs and a wrong opening point fail;
+14. KZG alone over BN254 at 20 variables (setup, commit, open, verify apart),
+   then succinct GKR at depth 20;
+15. MSM alone over BN254 at 2^20 and 2^24 points: the result must be
+   (sum s_i a_i) G; at 2^24 every bucket of K4a's launch and every lane
+   total of K4b's is held against the plain version;
+16. the succinct-GKR main path at depth 24: ``prove_succinct``, the proof to
+   JSON and back, ``verify_succinct``, first call and warm, then under the
+   stage timers; K1-K4 must launch; tampered proofs fail.
 
 The next-to-last line is ``{"kernels": [...]}``, the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -255,16 +277,21 @@ def random_table(ctx, rng, log_n: int, device):
     return limbs_from_numpy(limbs, device), want_sum
 
 
-def reset_launches() -> None:
+def _wrappers() -> dict:
+    from tpu_zk_torch.curves import kernels as curve_kernels
     from tpu_zk_torch.fields import kernels
 
-    kernels.mont_mul.launches = kernels.fold.launches = kernels.addsub.launches = 0
+    return {"mont_mul": kernels.mont_mul, "fold": kernels.fold, "addsub": kernels.addsub,
+            "msm_buckets": curve_kernels.msm_buckets, "msm_bucket_reduce": curve_kernels.msm_bucket_reduce}
+
+
+def reset_launches() -> None:
+    for wrapper in _wrappers().values():
+        wrapper.launches = 0
 
 
 def read_launches() -> dict:
-    from tpu_zk_torch.fields import kernels
-
-    return {"mont_mul": kernels.mont_mul.launches, "fold": kernels.fold.launches, "addsub": kernels.addsub.launches}
+    return {name: wrapper.launches for name, wrapper in _wrappers().items()}
 
 
 def main_path(device, rng, log_n: int) -> dict:
@@ -335,8 +362,8 @@ def gkr_main_path(device, rng, depth: int) -> dict:
         raise AssertionError(f"GKR depth {depth}: output differs from the host's sum of the inputs")
     if len(proof.sumcheck_proofs) != depth or len(proof.sumcheck_proofs[-1].round_univariate_polynomials) != 2 * depth:
         raise AssertionError(f"GKR depth {depth}: wrong number of layers or rounds")
-    for name, n in launches.items():
-        if n == 0:
+    for name in ("mont_mul", "fold", "addsub"):  # plain GKR runs no MSM
+        if launches[name] == 0:
             raise AssertionError(f"GKR main path at depth {depth} never launched kernel {name}")
     del ev
     proof.wb_evaluations[0] += 1
@@ -360,6 +387,440 @@ def gkr_main_path(device, rng, depth: int) -> dict:
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
     }
     log(f"GKR main path depth {depth} bn254_fr: " + json.dumps(out))
+    return out
+
+
+HBM_BYTES_PER_S = 3.35e12  # the H100's published device-memory rate
+K4_CHECK_LOG_N = 12
+BLS_TIMED_LOG_N = 16  # K4 over BLS12-381 is timed at 2^16 points
+KZG_VARS = 20  # BASELINE config 4's size; also the second succinct-GKR depth
+SUCCINCT_DEPTH = 24  # this slice's full width: 2^24 inputs committed, 2^24 - 1 gates (BASELINE config 5)
+MSM_LOG_NS = (20, 24)
+
+
+def wide_mad_rate(device) -> float:
+    """The card's wide multiply-adds per second, by csrc/probe.cu: the
+    instruction the field kernels' CIOS issues, (uint64_t)a * b + c, in 8
+    independent chains per thread, 2048 threads per SM.  The 32-bit form
+    x * a + b is timed beside it and only logged."""
+    import ctypes
+
+    from tpu_zk_torch import _build
+
+    lib = _build.kernel_library()
+    blocks = torch.cuda.get_device_properties(device).multi_processor_count * 8
+    iters = 1 << 16
+    out = torch.empty(blocks * 256, dtype=torch.int32, device=device)
+
+    def launcher(name, *consts):
+        def launch():
+            rc = getattr(lib, name)(ctypes.c_void_p(out.data_ptr()), blocks, iters, *consts,
+                                    ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            if rc != 0:
+                raise RuntimeError(f"{name}: cudaError_t {rc}")
+        return launch
+
+    count = blocks * 256 * 8 * iters
+    wide = count / (event_ms(launcher("tzk_wide_mad_probe", 0x9E3779B1), 5) / 1e3)
+    narrow = count / (event_ms(launcher("tzk_imad_probe", 0x9E3779B1, 12345), 5) / 1e3)
+    log(f"probe: {wide:.4e} wide (32 x 32 + 64 -> 64 bit) multiply-adds per second, "
+        f"{narrow:.4e} 32-bit multiply-adds per second, ratio {narrow / wide:.3f}")
+    return wide
+
+
+def bound_ms(n_bytes: float, wide_mads: float, rate: float) -> tuple[float, str]:
+    """The least milliseconds the card could take: the larger of the bytes
+    over its memory rate and the wide multiply-adds over the probed rate."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, wide_mads / rate * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def mont_mul_wide_mads(ctx) -> int:
+    """Wide multiply-adds of one CIOS product of N = L/2 32-bit limbs: N^2
+    for a * b and N^2 for the reduction's m * p."""
+    return 2 * (ctx.L // 2) ** 2
+
+
+# Montgomery products that one complete addition needs.  Algorithm 7 has 12
+# products of two variables and two by the constant b3 = 3b (9 on BN254, 12 on
+# BLS12-381), which a few modular additions can do instead: the kernels issue
+# them as products, the bound leaves them out.
+EC_ADD_PRODUCTS = 12
+
+
+def rand_scalar_limbs(fr, n: int, rng, device) -> torch.Tensor:
+    """Random canonical plain scalars [n, L]: the top limb below the modulus's."""
+    from tpu_zk_torch.utils.convert import limbs_from_numpy
+
+    limbs = rng.integers(0, 1 << 16, size=(n, fr.L), dtype=np.uint32)
+    limbs[:, -1] %= fr.p >> (16 * (fr.L - 1))
+    return limbs_from_numpy(limbs, device)
+
+
+def unequal(ctx, P, Q) -> int:
+    """How many of the points differ as group elements (exact, through K1)."""
+    from tpu_zk_torch.curves.ec_device import ec_equal
+
+    return int((~ec_equal(ctx, P, Q)).sum())
+
+
+def k4_against_plain(dc, points, scalars, lanes: int, what: str) -> None:
+    """K4a then K4b on (points, scalars) against their plain versions."""
+    from tpu_zk_torch.curves import kernels
+    from tpu_zk_torch.curves import msm_pippenger as mp
+
+    ctx = dc.ctx
+    codes = mp._codes_by_window(scalars)
+    words = kernels.msm_buckets(ctx, dc.b3, points, codes, lanes)
+    torch.cuda.synchronize()
+    plain = kernels.msm_buckets_plain(ctx, dc.b3, points, codes, lanes)
+    bad = unequal(ctx, kernels.unpack_buckets(words), plain)
+    if bad:
+        raise AssertionError(f"K4a {what}: {bad} of {plain[0].numel() // ctx.L} buckets differ from the plain version's")
+    totals = kernels.msm_bucket_reduce(ctx, dc.b3, words)
+    torch.cuda.synchronize()
+    bad = unequal(ctx, totals, kernels.msm_bucket_reduce_plain(ctx, dc.b3, plain))
+    if bad:
+        raise AssertionError(f"K4b {what}: {bad} lane totals differ from the plain version's")
+
+
+def check_k4(device, rng) -> dict:
+    """Phase 12.  Returns K4a's and K4b's times beside their plain versions'
+    at 2^12 BN254 points."""
+    from tpu_zk_torch.curves import ec_device, fixed_base, kernels
+    from tpu_zk_torch.curves import msm_pippenger as mp
+    from tpu_zk_torch.curves.ec_device import DeviceCurve
+
+    n = 1 << K4_CHECK_LOG_N
+    times = {}
+    for name in ("bn254", "bls12_381"):
+        dc = DeviceCurve(name, device=device)
+        ctx, fr, hc = dc.ctx, dc.fr, dc.host
+        r = fr.p
+        # points k_i G with a duplicate, P and -P, identity points
+        k = rand_scalar_limbs(fr, n, rng, device)
+        k_ints = fr.to_ints(k[:64], mont=False)
+        k_ints[1] = k_ints[0]
+        k_ints[3] = r - k_ints[2]
+        k_ints[4] = k_ints[5] = 0
+        k[:64] = fr.array(k_ints, mont=False, device=device)
+        table = fixed_base.host_window_table(dc, fr.L * 16)
+        points = fixed_base.fixed_base_msm(ctx, dc.b3, table, fixed_base.digits4(k))
+        # scalars: equal for the duplicate and for P, -P; 0, 1, r - 1, 2^256 - 1 (not reduced)
+        s = rand_scalar_limbs(fr, n, rng, device)
+        s[1], s[3] = s[0], s[2]
+        s[6:9] = fr.array([0, 1, r - 1], mont=False, device=device)
+        s[9] = 0xFFFF
+        s_ints = [sum(int(v) << (16 * i) for i, v in enumerate(row)) for row in s[:64].cpu().tolist()]
+
+        k4_against_plain(dc, points, s, 96, f"{name} 2^{K4_CHECK_LOG_N} points, 96 lanes (ragged tail)")
+        k4_against_plain(dc, tuple(c[:20].contiguous() for c in points), s[:20].contiguous(), 32,
+                         f"{name} 20 points, 32 lanes")
+        k4_against_plain(dc, points, torch.zeros_like(s), 64, f"{name} all-zero scalars")
+        lanes = kernels.default_lanes(ctx, n, 53, device)
+        k4_against_plain(dc, points, s, lanes, f"{name} 2^{K4_CHECK_LOG_N} points, {lanes} lanes")
+
+        whole = dc.point_to_host(mp.msm_pippenger(ctx, dc.b3, (points, s), threshold=0))
+        slow = dc.point_to_host(ec_device.msm(ctx, dc.b3, points, ec_device.scalar_bits(fr, s)))
+        if whole is None or whole != slow:
+            raise AssertionError(f"msm_pippenger {name}: differs from the double-and-add MSM")
+        first = (tuple(c[:64].contiguous() for c in points), s[:64].contiguous())
+        got = dc.point_to_host(mp.msm_pippenger(ctx, dc.b3, first, threshold=0))
+        want = hc.g1_affine(hc.g1_mul(hc.g1_generator(), sum(a * b for a, b in zip(k_ints, s_ints)) % r))
+        if got != want:
+            raise AssertionError(f"msm_pippenger {name}: differs from host ints on 64 points")
+        if dc.point_to_host(mp.msm_pippenger(ctx, dc.b3, (points, torch.zeros_like(s)), threshold=0)) is not None:
+            raise AssertionError(f"msm_pippenger {name}: all-zero scalars do not give the identity")
+        log(f"K4 {name}: K4a and K4b equal their plain versions as group elements (2^{K4_CHECK_LOG_N} points at 96 and "
+            f"{lanes} lanes, 20 points at 32 lanes, all-zero scalars); msm_pippenger == double-and-add == host ints")
+
+        if name == "bn254":
+            codes = mp._codes_by_window(s)
+            words = kernels.msm_buckets(ctx, dc.b3, points, codes, lanes)
+            plain = kernels.msm_buckets_plain(ctx, dc.b3, points, codes, lanes)
+            times["K4a"] = {
+                "ms": event_ms(lambda: kernels.msm_buckets(ctx, dc.b3, points, codes, lanes), 20),
+                "plain_ms": event_ms(lambda: kernels.msm_buckets_plain(ctx, dc.b3, points, codes, lanes), 1)}
+            times["K4b"] = {
+                "ms": event_ms(lambda: kernels.msm_bucket_reduce(ctx, dc.b3, words), 20),
+                "plain_ms": event_ms(lambda: kernels.msm_bucket_reduce_plain(ctx, dc.b3, plain), 1)}
+            for what, m in times.items():
+                log(f"{what} bn254 2^{K4_CHECK_LOG_N} points, {lanes} lanes: {m['ms']:.4f} ms (plain {m['plain_ms']:.4f} ms)")
+        else:  # the 12-word field's kernels at a size where they fill the card
+            big = 1 << BLS_TIMED_LOG_N
+            k = rand_scalar_limbs(fr, big, rng, device)
+            points = fixed_base.fixed_base_msm(ctx, dc.b3, table, fixed_base.digits4(k))
+            codes = mp._codes_by_window(rand_scalar_limbs(fr, big, rng, device))
+            lanes = kernels.default_lanes(ctx, big, 53, device)
+            words = kernels.msm_buckets(ctx, dc.b3, points, codes, lanes)
+            log(f"K4a {name} 2^{BLS_TIMED_LOG_N} points, {lanes} lanes: "
+                f"{event_ms(lambda: kernels.msm_buckets(ctx, dc.b3, points, codes, lanes), 10):.4f} ms; K4b: "
+                f"{event_ms(lambda: kernels.msm_bucket_reduce(ctx, dc.b3, words), 10):.4f} ms")
+    return times
+
+
+def check_default_device(rng) -> None:
+    """Phase 11: host ints and no device argument must reach the card."""
+    from tpu_zk_torch.fields.arith import field_ctx
+    from tpu_zk_torch.gkr import sparse
+
+    ctx = field_ctx("bn254_fr")
+    circuit = mixed_circuit(ctx, 5, rng)
+    vals = [int.from_bytes(rng.bytes(32), "little") % ctx.p for _ in range(32)]
+    reset_launches()
+    proof = sparse.prove(circuit, vals)
+    if not sparse.verify(circuit, proof, vals):
+        raise AssertionError("the proof from host ints does not verify")
+    launches = read_launches()
+    if ctx.array([1]).device.type != "cuda" or not all(launches[k] > 0 for k in ("mont_mul", "fold", "addsub")):
+        raise AssertionError(f"host ints with no device argument did not reach the card: launches {launches}")
+    log(f"default device: a GKR proof from host ints with no device argument launched {launches}")
+
+
+def check_succinct_parity(device, rng) -> None:
+    """Phase 13."""
+    from tpu_zk_torch.circuit.layered import Circuit, Gate, Layer
+    from tpu_zk_torch.curves import msm_pippenger as mp
+    from tpu_zk_torch.curves.params import CURVES
+    from tpu_zk_torch.fields.arith import field_ctx
+    from tpu_zk_torch.gkr import sparse
+    from tpu_zk_torch.kzg import multilinear_kzg as kzg
+    from tpu_zk_torch.kzg.trusted_setup import TrustedSetup
+    from tpu_zk_torch.utils.serialize import succinct_proof_from_json, succinct_proof_to_json
+
+    bls, bn = field_ctx("bls12_381_fr"), field_ctx("bn254_fr")
+    two_layers = Circuit(bls, [Layer([Gate.mul(0, 1, 0)]), Layer([Gate.add(0, 1, 0), Gate.mul(2, 3, 1)])])
+    cases = [
+        ("two layers, bls12_381, taus [5, 2]", "bls12_381", two_layers, [2, 3, 4, 5], [5, 2]),
+        ("mixed depth 6, bn254", "bn254", mixed_circuit(bn, 6, rng),
+         [int.from_bytes(rng.bytes(32), "little") % bn.p for _ in range(64)],
+         [int.from_bytes(rng.bytes(32), "little") % bn.p for _ in range(6)]),
+    ]
+    saved, mp.BUCKET_THRESHOLD = mp.BUCKET_THRESHOLD, 2  # K4 from 2 points up
+    try:
+        for what, curve, circuit, vals, taus in cases:
+            field = circuit.ctx.name
+            reset_launches()
+            setup = TrustedSetup.initialize_setup(curve, taus)  # no device argument: the card
+            proof = sparse.prove_succinct(circuit, vals, setup)
+            launches = read_launches()
+            if not all(launches[k] > 0 for k in ("msm_buckets", "msm_bucket_reduce", "mont_mul", "fold", "addsub")):
+                raise AssertionError(f"succinct parity {what}: the card side skipped a kernel: {launches}")
+            card_json = succinct_proof_to_json(proof, field)
+            if not sparse.verify_succinct(circuit, succinct_proof_from_json(card_json), setup):
+                raise AssertionError(f"succinct parity {what}: the card's proof does not verify")
+            cpu_setup = TrustedSetup.initialize_setup(curve, taus, device="cpu")
+            cpu_proof = sparse.prove_succinct(circuit, vals, cpu_setup)
+            if not sparse.verify_succinct(circuit, cpu_proof, cpu_setup):
+                raise AssertionError(f"succinct parity {what}: the CPU's proof does not verify")
+            if succinct_proof_to_json(cpu_proof, field) != card_json:
+                raise AssertionError(f"succinct parity {what}: proof JSON from the card differs from the CPU's")
+
+            n = len(taus)
+            rb = proof.sumcheck_proofs[-1].random_challenges[:n]
+            c, opening = proof.input_polynomial_commitment, proof.input_rb_proof
+            if not kzg.verify(setup, c, rb, opening):
+                raise AssertionError(f"succinct parity {what}: the rb opening does not verify")
+            wrong_value = kzg.MultilinearKZGProof(opening.evaluation + 1, list(opening.proofs))
+            wrong_point = kzg.MultilinearKZGProof(opening.evaluation, [CURVES[curve]["g1"]] + list(opening.proofs[1:]))
+            if (kzg.verify(setup, c, rb, wrong_value) or kzg.verify(setup, c, rb, wrong_point)
+                    or kzg.verify(setup, c, [rb[0] + 1] + rb[1:], opening)):
+                raise AssertionError(f"succinct parity {what}: the pairing check accepts a tampered opening")
+            log(f"succinct parity {what}: CUDA proof JSON == CPU proof JSON ({len(card_json)} bytes), both verify; "
+                f"tampered evaluation, quotient point and opening point rejected; launches {launches}")
+    finally:
+        mp.BUCKET_THRESHOLD = saved
+
+
+def timed_setup(device, n_vars: int, seed: int):
+    """(setup with its folded bases, taus, times) for BN254, on the default
+    device (the card), the stages timed by the breakdown's timers."""
+    from tpu_zk_torch.gkr import breakdown
+    from tpu_zk_torch.kzg.trusted_setup import TrustedSetup, generate_values_for_tau
+
+    taus = generate_values_for_tau("bn254", n_vars, seed=seed)
+
+    def make():
+        setup = TrustedSetup.initialize_setup("bn254", taus)
+        setup.folded_g1_bases()
+        return setup
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    setup, stages, _, _ = breakdown.staged(make, device, breakdown.SUCCINCT_STAGES)
+    torch.cuda.synchronize()
+    times = {"n_vars": n_vars, "setup_s": time.perf_counter() - t0, "setup_stages_s": stages}
+    log(f"setup bn254 {n_vars} variables: " + json.dumps(times))
+    return setup, taus, times
+
+
+def kzg_alone(device, rng, setup) -> dict:
+    """Phase 14: commit, open, verify of a random 2^20 BN254 Fr table."""
+    from tpu_zk_torch.fields import arith
+    from tpu_zk_torch.fields.arith import field_ctx
+    from tpu_zk_torch.kzg import multilinear_kzg as kzg
+    from tpu_zk_torch.poly.multilinear import MultilinearPolynomial
+
+    ctx = field_ctx("bn254_fr")
+    n = setup.num_vars
+    plain, _ = random_table(ctx, rng, n, device)
+    poly = MultilinearPolynomial(ctx, arith.to_mont(ctx, plain))
+    point = [int.from_bytes(rng.bytes(32), "little") % ctx.p for _ in range(n)]
+    reset_launches()
+    commitment, t_commit = sync_time(lambda: kzg.commit_to_polynomial(poly, setup))
+    proof, t_open = sync_time(lambda: kzg.open_and_prove(poly, setup, point))
+    launches = read_launches()
+    pairs, t_points = sync_time(lambda: kzg.pairing_pairs(setup, commitment, point, proof))
+    ok, t_pairing = sync_time(lambda: kzg.pairing_product_is_one("bn254", pairs))
+    if not ok or not kzg.verify(setup, commitment, point, proof):
+        raise AssertionError(f"KZG at {n} variables: the opening does not verify")
+    if proof.evaluation != poly.evaluate(point) or len(proof.proofs) != n:
+        raise AssertionError(f"KZG at {n} variables: wrong evaluation or number of quotient points")
+    if kzg.verify(setup, commitment, point, kzg.MultilinearKZGProof(proof.evaluation + 1, proof.proofs)):
+        raise AssertionError(f"KZG at {n} variables: a tampered evaluation verifies")
+    if launches["msm_buckets"] == 0 or launches["msm_bucket_reduce"] == 0:
+        raise AssertionError(f"KZG at {n} variables never launched K4: {launches}")
+    _, t_commit_warm = sync_time(lambda: kzg.commit_to_polynomial(poly, setup))
+    _, t_open_warm = sync_time(lambda: kzg.open_and_prove(poly, setup, point))
+    out = {"n_vars": n, "commit_first_s": t_commit, "open_first_s": t_open, "commit_warm_s": t_commit_warm,
+           "open_warm_s": t_open_warm, "verify_host_points_s": t_points, "verify_pairing_s": t_pairing,
+           "launches": launches}
+    log(f"KZG alone bn254 {n} variables: " + json.dumps(out))
+    return out
+
+
+def msm_alone(device, rng, setup, taus, rate: float) -> dict:
+    """Phase 15.  Returns the runs and K4a's and K4b's rows at 2^24."""
+    from tpu_zk_torch.curves import kernels
+    from tpu_zk_torch.curves import msm_pippenger as mp
+    from tpu_zk_torch.fields import arith
+    from tpu_zk_torch.kzg.trusted_setup import compute_lagrange_basis_device
+
+    dc = setup.curve
+    ctx, fr, hc = dc.ctx, dc.fr, dc.host
+    multipliers = compute_lagrange_basis_device(fr, taus, device=device)  # powers[i] = multipliers[i] G
+    out = {"runs": [], "kernels": {}}
+    for log_n in MSM_LOG_NS:
+        n = 1 << log_n
+        points = tuple(c[:n] for c in setup.g1_powers_of_tau)
+        s = rand_scalar_limbs(fr, n, rng, device)
+        reset_launches()
+        got, t_first = sync_time(lambda: mp.msm_pippenger(ctx, dc.b3, (points, s)))
+        launches = read_launches()
+        _, t_warm = sync_time(lambda: mp.msm_pippenger(ctx, dc.b3, (points, s)))
+        k = fr.to_ints(arith.sum_mod(fr, arith.mont_mul(fr, multipliers[:n], arith.to_mont(fr, s))))
+        if dc.point_to_host(got) != hc.g1_affine(hc.g1_mul(hc.g1_generator(), k)):
+            raise AssertionError(f"MSM 2^{log_n}: the result is not (sum s_i a_i) G")
+        if launches["msm_buckets"] != 1 or launches["msm_bucket_reduce"] != 1:
+            raise AssertionError(f"MSM 2^{log_n}: expected one K4a and one K4b launch, got {launches}")
+
+        codes, t_codes = sync_time(lambda: mp._codes_by_window(s))
+        W = codes.shape[0]
+        lanes = kernels.default_lanes(ctx, n, W, device)
+        words = kernels.msm_buckets(ctx, dc.b3, points, codes, lanes)
+        ms_a = event_ms(lambda: kernels.msm_buckets(ctx, dc.b3, points, codes, lanes), 2)
+        ms_b = event_ms(lambda: kernels.msm_bucket_reduce(ctx, dc.b3, words), 5)
+        run = {"log_n": log_n, "first_s": t_first, "warm_s": t_warm, "points_per_s_warm": n / t_warm,
+               "digits_s": t_codes, "k4a_ms": ms_a, "k4b_ms": ms_b, "lanes": lanes, "launches": launches}
+        out["runs"].append(run)
+        log(f"MSM alone bn254 2^{log_n}: " + json.dumps(run))
+
+        if log_n == max(MSM_LOG_NS):
+            # K4a against its plain version, every bucket of this launch: the plain version cannot hold
+            # 16 W n slots at once, so it runs lane by lane (a lane's points are what one thread walked)
+            bad, plain_s = 0, 0.0
+            for lane in range(lanes):
+                sub_points = tuple(c[lane::lanes].contiguous() for c in points)
+                sub_codes = codes[:, lane::lanes].contiguous()
+                plain, dt = sync_time(lambda: kernels.msm_buckets_plain(ctx, dc.b3, sub_points, sub_codes, 1))
+                plain_s += dt
+                bad += unequal(ctx, kernels.unpack_buckets(words[:, lane]), tuple(c[:, 0] for c in plain))
+                del plain, sub_points, sub_codes
+            totals = kernels.msm_bucket_reduce(ctx, dc.b3, words)
+            buckets = kernels.unpack_buckets(words)
+            want, plain_b_s = sync_time(lambda: kernels.msm_bucket_reduce_plain(ctx, dc.b3, buckets))
+            bad_b = unequal(ctx, totals, want)
+            if bad or bad_b:
+                raise AssertionError(f"MSM 2^{log_n}: K4a differs on {bad} buckets, K4b on {bad_b} lanes")
+            log(f"MSM alone 2^{log_n}: K4a equals its plain version on all {W} x {lanes} x 16 buckets "
+                f"(plain, lane by lane: {plain_s:.1f} s), K4b on all {W} x {lanes} lanes (plain {plain_b_s * 1e3:.1f} ms)")
+            live = int(((codes & 64) == 0).sum())
+            add_mads = EC_ADD_PRODUCTS * mont_mul_wide_mads(ctx)
+            bytes_a = 3 * n * ctx.L * 4 + codes.numel() + words.numel() * 4
+            bytes_b = words.numel() * 4 + W * lanes * 3 * ctx.L * 4
+            out["kernels"]["K4a"] = {"ms": ms_a, "shape": f"{n} points, {W} windows, {lanes} lanes",
+                                     "bound": bound_ms(bytes_a, live * add_mads, rate), "max_abs_err": bad,
+                                     "plain_ms": plain_s * 1e3}
+            out["kernels"]["K4b"] = {"ms": ms_b, "shape": f"{W} x {lanes} lanes of 16 buckets",
+                                     "bound": bound_ms(bytes_b, W * lanes * 32 * add_mads, rate), "max_abs_err": bad_b,
+                                     "plain_ms": plain_b_s * 1e3}
+        del words, codes, s
+    return out
+
+
+def succinct_main_path(device, rng, setup, setup_times: dict) -> dict:
+    """Phases 14 and 16: prove_succinct, to JSON, verify_succinct of
+    tree_sum_circuit(setup.num_vars) on random inputs, first call and warm,
+    then once under the stage timers."""
+    from tpu_zk_torch.circuit.layered import tree_sum_circuit
+    from tpu_zk_torch.fields import arith
+    from tpu_zk_torch.fields.arith import field_ctx
+    from tpu_zk_torch.gkr import breakdown, sparse
+    from tpu_zk_torch.utils.serialize import succinct_proof_from_json, succinct_proof_to_json
+
+    ctx = field_ctx("bn254_fr")
+    depth = setup.num_vars
+    plain, want_sum = random_table(ctx, rng, depth, device)
+    circuit = tree_sum_circuit(ctx, depth)
+    table = arith.to_mont(ctx, plain)
+    del plain
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    proof, t_prove = sync_time(lambda: sparse.prove_succinct(circuit, table, setup))
+    proof_json, t_json = sync_time(lambda: succinct_proof_to_json(proof, ctx.name))
+    received = succinct_proof_from_json(proof_json)
+    ok, t_verify = sync_time(lambda: sparse.verify_succinct(circuit, received, setup))
+    launches = read_launches()
+
+    if not ok:
+        raise AssertionError(f"succinct GKR depth {depth}: the proof does not verify")
+    if proof.circuit_output != [want_sum]:
+        raise AssertionError(f"succinct GKR depth {depth}: output differs from the host's sum of the inputs")
+    if (len(proof.sumcheck_proofs) != depth or len(proof.input_rb_proof.proofs) != depth
+            or len(proof.input_rc_proof.proofs) != depth or proof.input_polynomial_commitment is None):
+        raise AssertionError(f"succinct GKR depth {depth}: wrong number of layers or quotient points")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"succinct GKR main path at depth {depth} never launched kernel {name}")
+    for what, change in (("wb evaluation", lambda q: q.wb_evaluations.__setitem__(0, q.wb_evaluations[0] + 1)),
+                         ("KZG evaluation", lambda q: setattr(q.input_rb_proof, "evaluation", q.input_rb_proof.evaluation + 1)),
+                         ("quotient point", lambda q: q.input_rc_proof.proofs.__setitem__(0, q.input_polynomial_commitment))):
+        tampered = succinct_proof_from_json(proof_json)
+        change(tampered)
+        if sparse.verify_succinct(circuit, tampered, setup):
+            raise AssertionError(f"succinct GKR depth {depth}: a proof with a tampered {what} verifies")
+
+    warm, t_prove_warm = sync_time(lambda: sparse.prove_succinct(circuit, table, setup))
+    ok, t_verify_warm = sync_time(lambda: sparse.verify_succinct(circuit, warm, setup))
+    if not ok or succinct_proof_to_json(warm, ctx.name) != proof_json:
+        raise AssertionError(f"succinct GKR depth {depth}: the warm proof differs or does not verify")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del warm
+    (_, prove_stages, prove_calls, prove_whole), t_prove_timers = sync_time(
+        lambda: breakdown.staged(lambda: sparse.prove_succinct(circuit, table, setup), device, breakdown.SUCCINCT_STAGES))
+    (_, verify_stages, _, _), t_verify_timers = sync_time(
+        lambda: breakdown.staged(lambda: sparse.verify_succinct(circuit, received, setup), device,
+                                 breakdown.SUCCINCT_STAGES))
+    out = {
+        "depth": depth, "gates": (1 << depth) - 1, **setup_times, "prove_first_s": t_prove, "to_json_s": t_json,
+        "proof_json_bytes": len(proof_json), "verify_first_s": t_verify, "prove_warm_s": t_prove_warm,
+        "verify_warm_s": t_verify_warm, "peak_mem_gib": peak, "launches": launches,
+        "prove_with_timers_s": t_prove_timers, "prove_whole_s": prove_whole, "prove_stages_s": prove_stages,
+        "prove_stage_calls": prove_calls,
+        "verify_with_timers_s": t_verify_timers, "verify_stages_s": verify_stages,
+    }
+    log(f"succinct GKR main path depth {depth} bn254: " + json.dumps(out))
     return out
 
 
@@ -418,9 +879,25 @@ def kernel_times(device, gen) -> dict:
     return out
 
 
-def kernels_line(times: dict, launches: dict) -> list[dict]:
-    """The {"kernels": [...]} rows: times at the GKR round's shapes, the
-    basic sumcheck's beside them; launches from the depth-24 GKR path."""
+def kernels_line(times: dict, launches: dict, k4_small: dict, k4_main: dict, rate: float) -> list[dict]:
+    """The {"kernels": [...]} rows.  K1-K3: times at a depth-24 GKR round's
+    shapes, the basic sumcheck's beside them.  K4a, K4b: times at the 2^24
+    MSM's shape, K4a's plain version run there lane by lane (one call cannot
+    hold its slots) and its times added up; both kernels' times at 2^12
+    points beside them.  ``launches`` is the depth-24 succinct path's count.  No PyTorch call
+    computes any of these functions, so ``library_ms`` is null."""
+    from tpu_zk_torch.fields.arith import field_ctx
+
+    ctx = field_ctx("bn254_fr")
+    elem = ctx.L * 4  # bytes of one element in the tensors' 16-bit-limb layout
+    N = 1 << MAIN_LOG_N
+    mul = mont_mul_wide_mads(ctx)
+    # (bytes moved, wide multiply-adds) at each row's shape
+    work = {
+        "mont_mul": (3 * N * elem, N * mul),  # 2^24 pairs in, 2^24 out
+        "fold": (4 * (N + N // 2) * elem, 4 * (N // 2) * mul),  # [4, 2^24, 16] in, [4, 2^23, 16] out
+        "addsub": (3 * 2 * N * elem, 0),  # [2^25, 16] twice in, once out; adds with carry only
+    }
     rows = []
     for name, key, replaces, gkr, sumcheck in (
         ("mont_mul", "K1", "tpu_zk/fields/pallas_kernels.py:142, tpu_zk/fields/pallas_kernels.py:270",
@@ -431,14 +908,28 @@ def kernels_line(times: dict, launches: dict) -> list[dict]:
          "K3 GKR sub hi - lo 2^25", None),
     ):
         mine = {k: v for k, v in times.items() if k.startswith(key)}
+        least, by = bound_ms(*work[name], rate)
         row = {"name": name, "route": "cuda", "source": "tpu_zk_torch/csrc/kernels.cu", "replaces": replaces,
-               "launches": launches["gkr"][name], "launches_by_path": {p: n[name] for p, n in launches.items()},
+               "launches": launches["succinct"][name], "launches_by_path": {p: n[name] for p, n in launches.items()},
                "max_abs_err": max(m["max_abs_err"] for m in mine.values()), "ms": times[gkr]["ms"],
-               "plain_ms": times[gkr]["plain_ms"], "shape": gkr}
+               "plain_ms": times[gkr]["plain_ms"], "bound_ms": least, "bound_by": by, "library_ms": None, "shape": gkr}
         if sumcheck:
             row.update(sumcheck_shape=sumcheck, sumcheck_ms=times[sumcheck]["ms"],
                        sumcheck_plain_ms=times[sumcheck]["plain_ms"])
         rows.append(row)
+    for name, key, replaces in (
+        ("msm_buckets", "K4a", "tpu_zk/curves/ec_pallas.py:114, tpu_zk/curves/ec_pallas.py:273"),
+        ("msm_bucket_reduce", "K4b", "tpu_zk/curves/ec_pallas.py:273"),
+    ):
+        main_shape = k4_main[key]
+        rows.append({"name": name, "route": "cuda", "source": "tpu_zk_torch/csrc/msm.cu", "replaces": replaces,
+                     "launches": launches["succinct"][name], "launches_by_path": {p: n[name] for p, n in launches.items()},
+                     "max_abs_err": main_shape["max_abs_err"], "ms": main_shape["ms"],
+                     "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound"][0],
+                     "bound_by": main_shape["bound"][1], "library_ms": None, "shape": main_shape["shape"],
+                     "small_shape": f"2^{K4_CHECK_LOG_N} points", "small_ms": k4_small[key]["ms"],
+                     "small_plain_ms": k4_small[key]["plain_ms"],
+                     "max_abs_err_is": "points unequal to the plain version's as group elements"})
     return rows
 
 
@@ -463,7 +954,11 @@ def main() -> None:
     _build.kernel_library()
     t1 = time.perf_counter()
     _build.keccak_library()
-    log(f"build: kernels {t1 - t0:.2f} s, keccak {time.perf_counter() - t1:.2f} s")
+    t2 = time.perf_counter()
+    _build.pairing_library()
+    log(f"build: kernels {t1 - t0:.2f} s, keccak {t2 - t1:.2f} s, pairing {time.perf_counter() - t2:.2f} s")
+    log("ptxas: " + json.dumps(_build.resource_usage()))
+    rate = wide_mad_rate(device)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
@@ -476,9 +971,21 @@ def main() -> None:
     sumcheck_runs = [main_path(device, rng, MAIN_LOG_N), main_path(device, rng, BENCH_LOG_N)]  # 8
     gkr_runs = [gkr_main_path(device, rng, depth) for depth in GKR_DEPTHS]  # 9
     times = kernel_times(device, gen)  # 10
-    launches = {"sumcheck": sumcheck_runs[0]["launches"], "gkr": gkr_runs[0]["launches"]}
+    check_default_device(rng)  # 11
+    k4_small = check_k4(device, rng)  # 12
+    check_succinct_parity(device, rng)  # 13
 
-    log(json.dumps({"kernels": kernels_line(times, launches)}))
+    setup, _, setup_times = timed_setup(device, KZG_VARS, args.seed)  # 14
+    kzg_alone(device, rng, setup)
+    succinct_main_path(device, rng, setup, setup_times)
+    del setup
+    setup, taus, setup_times = timed_setup(device, SUCCINCT_DEPTH, args.seed)
+    k4_main = msm_alone(device, rng, setup, taus, rate)  # 15
+    succinct_run = succinct_main_path(device, rng, setup, setup_times)  # 16
+    launches = {"sumcheck": sumcheck_runs[0]["launches"], "gkr": gkr_runs[0]["launches"],
+                "succinct": succinct_run["launches"]}
+
+    log(json.dumps({"kernels": kernels_line(times, launches, k4_small, k4_main["kernels"], rate)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

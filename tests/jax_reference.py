@@ -1,10 +1,11 @@
 """Run tpu_zk (JAX) reference computations in a fresh Python process.
 
-XLA:CPU's in-process compiler crashes sporadically once one process has
-compiled a few hundred programs (see pytest.ini).  The port's comparison
-tests compile many reference programs (a whole GKR prove compiles dozens);
-running those in a child process that exits afterwards leaves the test
-worker's own compile count where it was.
+Every XLA:CPU program a process compiles stays loaded in it, and a test
+worker that holds too many dies in a later compile (see the ``conftest.py``
+at the root of the repo).  The port's comparison tests compile many reference
+programs (a whole GKR prove compiles dozens); running those in a child
+process that exits afterwards leaves the test worker's own count where it
+was.
 """
 
 from __future__ import annotations

@@ -18,9 +18,13 @@ import torch
 from tests import jax_reference
 from tpu_zk.fields import arith as jarith
 from tpu_zk.fields import primes as jprimes
+from tpu_zk_torch import device as tdevice
 from tpu_zk_torch.fields import arith, kernels, primes
 from tpu_zk_torch.poly import multilinear
 from tpu_zk_torch.utils.convert import limbs_from_numpy, limbs_to_numpy
+
+tdevice.set_default_device("cpu")  # these tests run the plain versions, on the CPU
+torch.set_num_threads(1)  # small tensors: more threads only take cores from the other test workers
 
 FIELDS = ["bn254_fq", "bn254_fr", "bls12_381_fr", "bls12_381_fq"]
 FOLD_FIELDS = ["bn254_fr", "bls12_381_fq"]

@@ -15,6 +15,7 @@ the tests here compare the port against its results.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from tests import jax_reference
 from tpu_zk.circuit import layered as jlayered
@@ -25,6 +26,7 @@ from tpu_zk.poly.composed import SumPolynomial as JSumPolynomial
 from tpu_zk.sumcheck import gkr_sumcheck as jgkr_sumcheck
 from tpu_zk.transcript.fiat_shamir import Transcript as JTranscript
 from tpu_zk.utils import serialize as jser
+from tpu_zk_torch import device as tdevice
 from tpu_zk_torch.circuit import layered
 from tpu_zk_torch.circuit.layered import ADD, MUL, tree_sum_circuit
 from tpu_zk_torch.fields import arith, kernels
@@ -36,6 +38,9 @@ from tpu_zk_torch.sumcheck import gkr_sumcheck
 from tpu_zk_torch.transcript.fiat_shamir import Transcript
 from tpu_zk_torch.utils import serialize
 from tpu_zk_torch.utils.convert import circuit_from_arrays, limbs_from_numpy, limbs_to_numpy
+
+tdevice.set_default_device("cpu")  # these tests run the plain versions, on the CPU
+torch.set_num_threads(1)  # small tensors: more threads only take cores from the other test workers
 
 JG = jlayered.Gate
 CASES = [

@@ -14,17 +14,22 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from tests import jax_reference
 from tpu_zk.fields.arith import field_ctx as j_field_ctx
 from tpu_zk.transcript import fiat_shamir as jfs
 from tpu_zk.transcript.keccak import keccak256 as j_keccak256
+from tpu_zk_torch import device as tdevice
 from tpu_zk_torch.fields.arith import field_ctx
 from tpu_zk_torch.poly.multilinear import MultilinearPolynomial
 from tpu_zk_torch.sumcheck import basic
 from tpu_zk_torch.transcript import fiat_shamir
 from tpu_zk_torch.transcript.keccak import Keccak256, keccak256, keccak256_plain
 from tpu_zk_torch.utils import serialize
+
+tdevice.set_default_device("cpu")  # these tests run the plain versions, on the CPU
+torch.set_num_threads(1)  # small tensors: more threads only take cores from the other test workers
 
 SLICE_LOG_N = 10
 SLICE_FIELDS = ["bn254_fq", "bn254_fr"]
@@ -190,7 +195,13 @@ def test_import_without_jax():
         "import tpu_zk_torch.sumcheck.basic, tpu_zk_torch.utils.serialize, tpu_zk_torch.utils.convert\n"
         "import tpu_zk_torch.gkr.sparse, tpu_zk_torch.sumcheck.gkr_sumcheck, tpu_zk_torch.circuit.layered\n"
         "import tpu_zk_torch.poly.composed, tpu_zk_torch.poly.univariate, tpu_zk_torch.gkr.breakdown\n"
+        "import tpu_zk_torch.device, tpu_zk_torch.gkr.succinct, tpu_zk_torch.kzg.multilinear_kzg\n"
+        "import tpu_zk_torch.kzg.trusted_setup, tpu_zk_torch.curves.params, tpu_zk_torch.curves.pairing\n"
+        "import tpu_zk_torch.curves.host_ec, tpu_zk_torch.curves.pairing_native, tpu_zk_torch.curves.ec_device\n"
+        "import tpu_zk_torch.curves.fixed_base, tpu_zk_torch.curves.kernels, tpu_zk_torch.curves.msm_pippenger\n"
+        "import chip_smoke\n"
         "assert not [m for m in sys.modules if m == 'tpu_zk' or m.startswith('tpu_zk.')], 'imported tpu_zk'\n"
     )
-    done = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
+    done = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+                          cwd=str(jax_reference.ROOT))
     assert done.returncode == 0, done.stderr

@@ -96,11 +96,12 @@ class Circuit:
         self.ctx = ctx
         self.layers = layers
 
-    def evaluate(self, values) -> CircuitEvaluationResult:
-        """``values``: host ints (evaluated on the CPU) or a Montgomery
-        ``[N, L]`` tensor (evaluated on its device)."""
+    def evaluate(self, values, device=None) -> CircuitEvaluationResult:
+        """``values``: a Montgomery ``[N, L]`` tensor (evaluated on its
+        device), or host ints (evaluated on ``device``, by default the
+        package's default device)."""
         ctx = self.ctx
-        current = values if isinstance(values, torch.Tensor) else ctx.array(list(values))
+        current = values if isinstance(values, torch.Tensor) else ctx.array(list(values), device=device)
         tables = [current]
         for layer in reversed(self.layers):
             current = _eval_layer(ctx, current, layer)

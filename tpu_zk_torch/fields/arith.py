@@ -13,6 +13,8 @@ Device data is in Montgomery form, ``mont(x) = x*R mod p``.  ``mont_mul``,
 ``sub`` and ``neg`` through the K3 wrapper (:mod:`.kernels`); each launches
 its CUDA kernel for CUDA tensors and runs its plain version for CPU tensors.
 Everything else here is plain torch on whatever device its inputs lie on.
+Tensors made from host ints go to :mod:`tpu_zk_torch.device`'s default (the
+CUDA card) unless the caller names a device.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import resolve
 from . import kernels
 from .primes import PRIMES, SERIALIZED_BYTES
 
@@ -80,14 +83,15 @@ class FieldCtx:
         return self.limbs(self.R, device)
 
     def array(self, values, mont: bool = True, device=None) -> torch.Tensor:
-        """Host ints -> [N, L] int32 tensor (Montgomery form by default)."""
+        """Host ints -> [N, L] int32 tensor (Montgomery form by default), on
+        ``device`` or, when none is given, the package's default device."""
         vals = [self.to_mont_int(v) if mont else v % self.p for v in values]
-        return torch.from_numpy(_ints_to_limbs(vals, self.L)).to(device or "cpu")
+        return torch.from_numpy(_ints_to_limbs(vals, self.L)).to(resolve(device))
 
     def scalar(self, value: int, mont: bool = True, device=None) -> torch.Tensor:
-        """Host int -> [L] int32 tensor."""
+        """Host int -> [L] int32 tensor, placed as :meth:`array` places it."""
         v = self.to_mont_int(value) if mont else value % self.p
-        return torch.tensor(_limbs_of_int(v, self.L), dtype=torch.int32, device=device or "cpu")
+        return torch.tensor(_limbs_of_int(v, self.L), dtype=torch.int32, device=resolve(device))
 
     def to_ints(self, t: torch.Tensor, mont: bool = True):
         """[..., L] limbs -> canonical python ints (one int for a single [L])."""
@@ -202,6 +206,16 @@ def sub(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def neg(ctx: FieldCtx, a: torch.Tensor) -> torch.Tensor:
     """p - a for a != 0, 0 for 0."""
     return sub(ctx, torch.zeros_like(a), a)
+
+
+def is_zero(ctx: FieldCtx, a: torch.Tensor) -> torch.Tensor:
+    """[..., L] canonical limbs -> bool [...]."""
+    return (a == 0).all(dim=-1)
+
+
+def eq(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Equality of canonical elements [..., L] (broadcasting) -> bool [...]."""
+    return (a == b).all(dim=-1)
 
 
 def mont_mul(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Where the time of a warm GKR prove goes, stage by stage.
+"""Where the time of a warm GKR prove goes, stage by stage; with
+``--succinct``, where the time of a succinct GKR setup, prove and verify goes.
 
-    python3 -m tpu_zk_torch.gkr.breakdown [--out FILE] [depth ...]
+    python3 -m tpu_zk_torch.gkr.breakdown [--succinct] [--out FILE] [depth ...]
 
 For each depth (default 24) of ``tree_sum_circuit`` over BN254 Fr, on random
 canonical inputs made from the depth as seed, on the CUDA card: a warm-up
@@ -10,6 +11,14 @@ calls per stage, time per layer); one prove under ``torch.profiler`` for the
 device's busy time, idle share and time by kernel name.  Prints one JSON
 line per depth and writes all of them to ``--out``
 (``build/gkr_breakdown.json`` by default).
+
+With ``--succinct`` (:func:`run_succinct`): the trusted setup, a warm-up
+``prove_succinct`` that must verify, then one setup, one prove and one
+verify with the stage timers of ``SUCCINCT_STAGES`` added (commit, each
+open, the MSM's digits, K4a, K4b, lane tree and window combine, the
+double-and-add MSMs, the verifier's host points and pairing product), and
+beside the exclusive times the inclusive ones of the commit, the two opens,
+the layers and the circuit evaluation.
 
 The stage timers wrap module attributes for the one timed prove and put
 them back after it; the prover itself carries no instrumentation.  On a
@@ -32,8 +41,11 @@ import torch
 
 from ..circuit import layered
 from ..circuit.layered import tree_sum_circuit
+from ..curves import msm_pippenger
+from ..curves.ec_device import DeviceCurve
 from ..fields import arith
 from ..fields.arith import field_ctx
+from ..kzg import multilinear_kzg, trusted_setup
 from ..poly import univariate
 from ..sumcheck import gkr_sumcheck
 from ..transcript import fiat_shamir
@@ -56,14 +68,37 @@ STAGES = [
     (sparse, "_layer_sumcheck", "layer sumcheck, rest (stacks, w(b*) + w, M' w(b*))"),
 ]
 
+# the stages of the succinct path on top of the GKR ones
+SUCCINCT_STAGES = STAGES + [
+    (trusted_setup, "compute_lagrange_basis_device", "setup: Lagrange basis (K1)"),
+    (trusted_setup, "host_window_table", "setup: host window table"),
+    (trusted_setup, "fixed_base_msm", "setup: fixed-base G1 powers (K1, K3)"),
+    (trusted_setup, "_fold_chain", "setup: fold chain of the G1 powers (K1, K3)"),
+    (sparse, "_prove_layers", "prove: layers, rest"),
+    (multilinear_kzg, "commit_to_polynomial", "commit, rest (from_mont)"),
+    (multilinear_kzg, "open_and_prove", "open, rest (evaluate, quotients, folds)"),
+    (msm_pippenger, "_codes_by_window", "msm: signed digits"),
+    (msm_pippenger, "msm_buckets", "msm: K4a buckets"),
+    (msm_pippenger, "msm_bucket_reduce", "msm: K4b bucket reduce"),
+    (msm_pippenger, "tree_reduce", "msm: lane tree (K1, K3)"),
+    (msm_pippenger, "_combine_windows", "msm: window combine (host ints)"),
+    (msm_pippenger, "msm", "msm: double-and-add below the bucket threshold (K1, K3)"),
+    (DeviceCurve, "point_to_host", "msm: result to affine host ints"),
+    (multilinear_kzg, "pairing_pairs", "verify: host G1/G2 points (Python ints)"),
+    (multilinear_kzg, "pairing_product_is_one", "verify: native pairing product"),
+    (sparse, "_verify_layers", "verify: layers"),
+]
+
 
 class Timers:
-    """Exclusive wall time and calls per stage, and the wall time of each
-    ``_layer_sumcheck`` call by its input table's size."""
+    """Exclusive and inclusive wall time and calls per stage, and the wall
+    time of each ``_layer_sumcheck`` call by its input table's size."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, stages=None):
+        self.stages = STAGES if stages is None else stages
         self.sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-        self.total: dict[str, float] = collections.defaultdict(float)
+        self.total: dict[str, float] = collections.defaultdict(float)  # exclusive of the stages called inside
+        self.inclusive: dict[str, float] = collections.defaultdict(float)
         self.calls: collections.Counter = collections.Counter()
         self.layers: list[tuple[int, float]] = []
         self._stack: list[float] = []
@@ -80,6 +115,7 @@ class Timers:
                 self.sync()
                 dt = time.perf_counter() - t0
                 self.total[stage] += dt - self._stack.pop()
+                self.inclusive[stage] += dt
                 self.calls[stage] += 1
                 if self._stack:
                     self._stack[-1] += dt
@@ -91,9 +127,9 @@ class Timers:
     @contextlib.contextmanager
     def installed(self):
         """Every STAGES function wrapped while the block runs."""
-        saved = [(owner, name, vars(owner)[name]) for owner, name, _ in STAGES]
+        saved = [(owner, name, vars(owner)[name]) for owner, name, _ in self.stages]
         try:
-            for owner, name, stage in STAGES:
+            for owner, name, stage in self.stages:
                 setattr(owner, name, self._timed(getattr(owner, name), stage))
             yield self
         finally:
@@ -153,9 +189,73 @@ def run(depth: int, device="cuda") -> dict:
     return out
 
 
+# the stages that contain others: their inclusive times set commit, each open,
+# the layers and the circuit evaluation apart
+WHOLE_STAGES = ("commit, rest (from_mont)", "open, rest (evaluate, quotients, folds)", "prove: layers, rest",
+                "circuit evaluation", "verify: layers")
+
+
+def staged(fn, device, stages=None):
+    """(fn(), exclusive seconds per stage, calls per stage, inclusive seconds
+    of the WHOLE_STAGES that ran) with the stage timers installed around the
+    one call."""
+    timers = Timers(torch.device(device), stages)
+    with timers.installed():
+        out = fn()
+    whole = {stage.split(",")[0]: timers.inclusive[stage] for stage in WHOLE_STAGES if stage in timers.inclusive}
+    return out, dict(sorted(timers.total.items(), key=lambda kv: -kv[1])), dict(timers.calls), whole
+
+
+def run_succinct(depth: int, device="cuda", seed: int = 0) -> dict:
+    """Setup, ``prove_succinct`` and ``verify_succinct`` of
+    ``tree_sum_circuit(depth)`` over BN254, each once under the stage timers
+    after an untimed warm-up."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ctx = field_ctx("bn254_fr")
+    rng = np.random.default_rng(depth)
+    limbs = rng.integers(0, 1 << 16, size=(1 << depth, ctx.L), dtype=np.uint32)
+    limbs[:, -1] &= 0x2FFF  # top limb < 0x3000 < p's (0x3064): every value < p
+    table = arith.to_mont(ctx, limbs_from_numpy(limbs, device))
+    circuit = tree_sum_circuit(ctx, depth)
+    taus = trusted_setup.generate_values_for_tau("bn254", depth, seed=seed)
+    out: dict = {"depth": depth}
+
+    def make_setup():
+        setup = trusted_setup.TrustedSetup.initialize_setup("bn254", taus, device=device)
+        setup.folded_g1_bases()
+        return setup
+
+    setup = make_setup()  # warm-up
+    proof = sparse.prove_succinct(circuit, table, setup)
+    if not sparse.verify_succinct(circuit, proof, setup):
+        raise AssertionError(f"depth {depth}: the warm-up succinct proof does not verify")
+    del setup
+    for what, fn in (("setup", make_setup), ("prove", lambda: sparse.prove_succinct(circuit, table, setup)),
+                     ("verify", lambda: sparse.verify_succinct(circuit, proof, setup))):
+        sync()
+        t0 = time.perf_counter()
+        result, stages_s, calls, whole = staged(fn, device, SUCCINCT_STAGES)
+        sync()
+        out[f"{what}_with_timers_s"] = time.perf_counter() - t0
+        out[f"{what}_stages_s"] = stages_s
+        out[f"{what}_stage_calls"] = calls
+        out[f"{what}_whole_s"] = whole
+        if what == "setup":
+            setup = result
+        elif what == "verify" and result is not True:
+            raise AssertionError(f"depth {depth}: the timed succinct proof does not verify")
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("depths", type=int, nargs="*", default=[24])
+    ap.add_argument("--succinct", action="store_true", help="break down the succinct path instead of plain GKR")
     ap.add_argument("--out", default=os.path.join("build", "gkr_breakdown.json"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -166,7 +266,7 @@ def main() -> None:
     print(card, flush=True)
     results = {"card": card, "runs": []}
     for depth in args.depths:
-        r = run(depth)
+        r = run_succinct(depth) if args.succinct else run(depth)
         results["runs"].append(r)
         print(json.dumps({k: v for k, v in r.items() if k not in ("layer_s_by_table_size", "top_device_ops_s")}),
               flush=True)

@@ -1,11 +1,13 @@
-"""Linear-time (Libra-style) GKR prover and verifier over sparse wiring.
+"""Linear-time (Libra-style) GKR prover and verifier over sparse wiring,
+plain and succinct (inputs committed with multilinear KZG).
 
-Counterpart of :mod:`tpu_zk.gkr.sparse` (prove, verify) and of
-:mod:`tpu_zk.gkr.fused_sparse`'s ``prove``, which emits the same bytes:
-:func:`prove` serves both.  Each layer's sumcheck over (b, c) runs in two
-phases, each over ``s = log2(width)`` variables, with bookkeeping tables of
-size ``width`` built from the sparse gate list in O(gates) device work (eq
-tables, gathers, one exact segment sum per phase):
+Counterpart of :mod:`tpu_zk.gkr.sparse` (prove, verify, prove_succinct,
+verify_succinct) and of :mod:`tpu_zk.gkr.fused_sparse`'s ``prove`` and
+``prove_succinct``, which emit the same bytes: one prover serves both.  Each
+layer's sumcheck over (b, c) runs in two phases, each over
+``s = log2(width)`` variables, with bookkeeping tables of size ``width``
+built from the sparse gate list in O(gates) device work (eq tables, gathers,
+one exact segment sum per phase):
 
 Phase 1 (variables b):   sum_c f(b,c) = w(b)*(A1(b) + M1(b)) + A2(b)
     A1[l] += W_out[g]             (add gates)     A1 = sum_c add(.,b,c)
@@ -33,11 +35,14 @@ import torch
 from ..circuit.layered import Circuit, Layer
 from ..fields import arith
 from ..fields.arith import FieldCtx
+from ..kzg import multilinear_kzg
+from ..kzg.trusted_setup import TrustedSetup
 from ..poly.composed import SumPolynomial
 from ..poly.multilinear import MultilinearPolynomial
 from ..sumcheck import gkr_sumcheck
 from ..transcript.fiat_shamir import Transcript
 from .protocol import Proof, _w0_padded
+from .succinct import SuccinctProof
 
 # ---------------------------------------------------------------------------
 # device building blocks
@@ -123,17 +128,18 @@ def _layer_sumcheck(ctx: FieldCtx, layer: Layer, w_table: torch.Tensor, w_out: t
     return proof, wb_m, wc_m
 
 
-def prove(circuit: Circuit, inputs) -> Proof:
-    """Linear-time GKR prove; the same Proof and bytes as ``tpu_zk``'s
-    ``sparse.prove`` and ``fused_sparse.prove``.
+def _prove_layers(circuit: Circuit, ev, succinct: bool):
+    """Every layer's sumcheck over an evaluated circuit.  Returns
+    (claimed_sum, layer proofs, wb evaluations, wc evaluations, rb, rc).
 
-    ``inputs`` is a host int list (proved on the CPU) or a Montgomery
-    ``[N, L]`` tensor (proved on its device, the practical form at 2^20+
-    inputs).
+    Plain GKR stops recording after the next-to-last layer; the succinct
+    protocol (``succinct_gkr_protocol.rs:119-126``) also keeps rb and rc of
+    the *last* layer, the points at which the input commitment is opened.
+    Both append and absorb wb/wc for every layer but the last.
     """
     ctx = circuit.ctx
-    ev = circuit.evaluate(inputs)
     device = ev.layer_tables[-1].device
+    n_layers = len(circuit.layers)
 
     transcript = Transcript()
     layer_proofs = []
@@ -155,12 +161,14 @@ def prove(circuit: Circuit, inputs) -> Proof:
             ctx, layer, ev.layer_tables[layer_index + 1], w_out, claimed_sum, transcript
         )
         layer_proofs.append(sumcheck_proof)
+        last = layer_index == n_layers - 1
 
-        if layer_index < len(circuit.layers) - 1:
+        if succinct or not last:
             sumcheck_challenges = sumcheck_proof.random_challenges
             middle = len(sumcheck_challenges) // 2
             rb_values = sumcheck_challenges[:middle]
             rc_values = sumcheck_challenges[middle:]
+        if not last:
             wb_evaluation, wc_evaluation = ctx.to_ints(torch.stack([wb_m, wc_m]))
             wb_evaluations.append(wb_evaluation)
             wc_evaluations.append(wc_evaluation)
@@ -171,12 +179,60 @@ def prove(circuit: Circuit, inputs) -> Proof:
             beta = transcript.random_challenge_as_field_element(ctx)
             claimed_sum = (alpha * wb_evaluation + beta * wc_evaluation) % ctx.p
 
+    return claimed_sum, layer_proofs, wb_evaluations, wc_evaluations, rb_values, rc_values
+
+
+def prove(circuit: Circuit, inputs, device=None) -> Proof:
+    """Linear-time GKR prove; the same Proof and bytes as ``tpu_zk``'s
+    ``sparse.prove`` and ``fused_sparse.prove``.
+
+    ``inputs`` is a Montgomery ``[N, L]`` tensor (proved on its device, the
+    practical form at 2^20+ inputs) or a host int list (proved on
+    ``device``, by default the package's default device).
+    """
+    ev = circuit.evaluate(inputs, device)
+    claimed_sum, layer_proofs, wb_evaluations, wc_evaluations, _, _ = _prove_layers(circuit, ev, succinct=False)
     return Proof(
         circuit_output=ev.output,
         claimed_sum=claimed_sum,
         sumcheck_proofs=layer_proofs,
         wb_evaluations=wb_evaluations,
         wc_evaluations=wc_evaluations,
+    )
+
+
+def prove_succinct(circuit: Circuit, inputs, trusted_setup: TrustedSetup) -> SuccinctProof:
+    """Succinct GKR (KZG-committed inputs) on the linear-time prover: the
+    same proof and transcript bytes as ``tpu_zk``'s ``sparse.prove_succinct``
+    and ``fused_sparse.prove_succinct`` (``gkr/src/succinct_gkr_protocol.rs``
+    :35-169).
+
+    ``inputs`` is a Montgomery ``[N, L]`` tensor on the setup's device or a
+    host int list (placed there).  The commitment is made before the layers
+    and the layers' working sets are gone before the two openings, so the
+    three never share the device's memory.
+    """
+    ctx = circuit.ctx
+    table = inputs if isinstance(inputs, torch.Tensor) else ctx.array(list(inputs), device=trusted_setup.curve.device)
+    input_polynomial = MultilinearPolynomial(ctx, table)
+    input_commitment = multilinear_kzg.commit_to_polynomial(input_polynomial, trusted_setup)
+
+    ev = circuit.evaluate(table)
+    output = ev.output
+    claimed_sum, layer_proofs, wb_evaluations, wc_evaluations, rb_values, rc_values = _prove_layers(
+        circuit, ev, succinct=True
+    )
+    del ev
+
+    return SuccinctProof(
+        circuit_output=output,
+        claimed_sum=claimed_sum,
+        sumcheck_proofs=layer_proofs,
+        wb_evaluations=wb_evaluations,
+        wc_evaluations=wc_evaluations,
+        input_polynomial_commitment=input_commitment,
+        input_rb_proof=multilinear_kzg.open_and_prove(input_polynomial, trusted_setup, rb_values),
+        input_rc_proof=multilinear_kzg.open_and_prove(input_polynomial, trusted_setup, rc_values),
     )
 
 
@@ -202,22 +258,21 @@ def _layer_vars(circuit: Circuit, layer_index: int, n_inputs: int) -> int | None
     return None if size & (size - 1) else size.bit_length() - 1
 
 
-def verify(circuit: Circuit, proof: Proof, inputs) -> bool:
-    """GKR verify with O(gates) wiring evaluations (no dense 2^(3i+2) tables).
+def _verify_layers(circuit: Circuit, proof, n_inputs: int, device, input_poly: MultilinearPolynomial | None):
+    """Every layer's sumcheck check.  Returns the last layer's (rb, rc), or
+    None if the proof is rejected.
 
-    ``inputs`` is a host int list (checked on the CPU) or a Montgomery
-    ``[N, L]`` tensor (checked on its device), N a power of two.  A proof
-    whose shape does not fit the circuit is rejected."""
+    With ``input_poly`` (plain GKR) the last layer's claim is checked against
+    the inputs' MLE at (rb, rc).  Without it (succinct GKR) the last layer's
+    wiring claim is not checked and zero is absorbed for its wb and wc, as
+    the reference verifier does (``succinct_gkr_protocol.rs:172-284``); the
+    caller checks the two KZG openings at (rb, rc) instead.
+    """
     ctx = circuit.ctx
-    if isinstance(inputs, torch.Tensor):
-        input_poly = MultilinearPolynomial(ctx, inputs)
-    else:
-        input_poly = MultilinearPolynomial.from_ints(ctx, list(inputs))
-    device = input_poly.table.device
     n_layers = len(circuit.layers)
     if (len(proof.sumcheck_proofs) != n_layers or len(proof.wb_evaluations) != n_layers - 1
             or len(proof.wc_evaluations) != n_layers - 1):
-        return False
+        return None
 
     transcript = Transcript()
     alpha = beta = 0
@@ -229,31 +284,35 @@ def verify(circuit: Circuit, proof: Proof, inputs) -> bool:
     claimed_sum = w0_polynomial.evaluate([random_challenge_a])
 
     for layer_index, layer in enumerate(circuit.layers):
-        s = _layer_vars(circuit, layer_index, input_poly.table.shape[0])
+        s = _layer_vars(circuit, layer_index, n_inputs)
         layer_proof = proof.sumcheck_proofs[layer_index]
         if s is None or len(layer_proof.round_univariate_polynomials) != 2 * s:
-            return False
+            return None
         if claimed_sum != layer_proof.claimed_sum % ctx.p:
-            return False
+            return None
         verify_result = gkr_sumcheck.verify(layer_proof, transcript, ctx)
         if not verify_result.is_proof_valid:
-            return False
+            return None
         sumcheck_challenges = verify_result.random_challenges
 
-        if layer_index < n_layers - 1:
+        last = layer_index == n_layers - 1
+        wb_evaluation = wc_evaluation = 0
+        if not last:
             wb_evaluation = proof.wb_evaluations[layer_index]
             wc_evaluation = proof.wc_evaluations[layer_index]
-        else:
+        elif input_poly is not None:
             wb_evaluation = input_poly.evaluate(sumcheck_challenges[:s])
             wc_evaluation = input_poly.evaluate(sumcheck_challenges[s:])
 
-        mid = len(prev_challenges) // 2
-        w_out = _out_weights(ctx, layer_index, layer.on(device)[2], random_challenge_a, alpha, beta,
-                             prev_challenges[:mid], prev_challenges[mid:])
-        add_r, mul_r = _sparse_wiring_eval(ctx, layer, w_out, sumcheck_challenges)
-        expected_claim = (add_r * (wb_evaluation + wc_evaluation) + mul_r * (wb_evaluation * wc_evaluation)) % ctx.p
-        if expected_claim != verify_result.last_claimed_sum:
-            return False
+        if not last or input_poly is not None:
+            mid = len(prev_challenges) // 2
+            w_out = _out_weights(ctx, layer_index, layer.on(device)[2], random_challenge_a, alpha, beta,
+                                 prev_challenges[:mid], prev_challenges[mid:])
+            add_r, mul_r = _sparse_wiring_eval(ctx, layer, w_out, sumcheck_challenges)
+            expected_claim = (add_r * (wb_evaluation + wc_evaluation)
+                              + mul_r * (wb_evaluation * wc_evaluation)) % ctx.p
+            if expected_claim != verify_result.last_claimed_sum:
+                return None
 
         prev_challenges = list(sumcheck_challenges)
         transcript.append(ctx.to_bytes_be(wb_evaluation))
@@ -262,4 +321,39 @@ def verify(circuit: Circuit, proof: Proof, inputs) -> bool:
         beta = transcript.random_challenge_as_field_element(ctx)
         claimed_sum = (alpha * wb_evaluation + beta * wc_evaluation) % ctx.p
 
-    return True
+    mid = len(prev_challenges) // 2
+    return prev_challenges[:mid], prev_challenges[mid:]
+
+
+def verify(circuit: Circuit, proof: Proof, inputs, device=None) -> bool:
+    """GKR verify with O(gates) wiring evaluations (no dense 2^(3i+2) tables).
+
+    ``inputs`` is a Montgomery ``[N, L]`` tensor (checked on its device) or a
+    host int list (checked on ``device``, by default the package's default
+    device), N a power of two.  A proof whose shape does not fit the circuit
+    is rejected."""
+    ctx = circuit.ctx
+    if isinstance(inputs, torch.Tensor):
+        input_poly = MultilinearPolynomial(ctx, inputs)
+    else:
+        input_poly = MultilinearPolynomial.from_ints(ctx, list(inputs), device=device)
+    table = input_poly.table
+    return _verify_layers(circuit, proof, table.shape[0], table.device, input_poly) is not None
+
+
+def verify_succinct(circuit: Circuit, proof: SuccinctProof, trusted_setup: TrustedSetup) -> bool:
+    """Sparse-wiring verify of a succinct proof and the two KZG opening
+    checks (``gkr/src/succinct_gkr_protocol.rs:172-284``), on the setup's
+    device.  A proof whose shape does not fit the circuit and the setup is
+    rejected."""
+    n_vars = trusted_setup.num_vars
+    openings = (proof.input_rb_proof, proof.input_rc_proof)
+    if any(len(o.proofs) != n_vars for o in openings):
+        return False
+    points = _verify_layers(circuit, proof, 1 << n_vars, trusted_setup.curve.device, None)
+    if points is None:
+        return False
+    return all(
+        multilinear_kzg.verify(trusted_setup, proof.input_polynomial_commitment, point, opening)
+        for point, opening in zip(points, openings)
+    )
