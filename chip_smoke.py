@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run tpu_zk_torch's basic sumcheck, GKR, MSM, KZG and succinct GKR on one CUDA card and check its kernels.
+"""Run tpu_zk_torch's basic sumcheck, GKR, MSM, KZG, succinct GKR, NTT and FRI on one CUDA card and check its kernels.
 
     python3 chip_smoke.py [--seed S]
 
@@ -9,8 +9,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
 2. build the kernels (one nvcc per source, side by side, sm_90a), the host
    Keccak and the host pairing engine, timed; print each kernel's registers
    and spills as ptxas reported them; probe the card's rate of wide
-   (32 x 32 + 64 -> 64 bit) multiply-adds, the unit of the kernels'
-   operation bounds;
+   (32 x 32 + 64 -> 64 bit) multiply-adds, the unit of the field kernels'
+   operation bounds, and of 32-bit funnel shifts and logic ops, K5's;
 3. K1 (Montgomery multiply) against its plain version, bit-exact, all four
    fields: 2^20 random elements, every pair of edge values, a broadcast scalar;
 4. K2 (fold + block sums) against its plain version, bit-exact: batch rows
@@ -53,7 +53,27 @@ Phases, in order; any failure raises and the exit code is nonzero:
    total of K4b's is held against the plain version;
 16. the succinct-GKR main path at depth 24: ``prove_succinct``, the proof to
    JSON and back, ``verify_succinct``, first call and warm, then under the
-   stage timers; K1-K4 must launch; tampered proofs fail.
+   stage timers; K1-K4 must launch; tampered proofs fail;
+17. K6 (NTT pass) against its plain version, bit-exact, both Fr fields, at
+   every radix the plans use and small ones, with and without pre-twiddle,
+   scale and natural-order store, ragged column counts;
+18. K5 (Keccak rows) against its plain version, bit-exact, widths 0, 1, 32,
+   64 and 135, 1 to 2^22 rows, rows off a 16-byte line;
+19. the NTT path over BN254 Fr: ``NTT.forward``/``inverse`` at 2^24 and 2^20,
+   first call and warm; inverse(forward(x)) == x; at 2^20 both equal the
+   stage-at-a-time oracle; ``polynomial_multiply`` of two degree-2^19 - 1
+   polynomials from host ints, checked at 32 random points by Horner on
+   host ints; K6 must launch;
+20. FRI: the proof from the card equals the CPU's at 2^10; then the NTT ->
+   Merkle-committed ``fri.prove`` -> ``fri.verify`` path at 2^24 (a random
+   polynomial of degree < 2^22) and 2^18 (``bench_fri``'s table and
+   parameters), first call and warm, K5's Merkle levels round by round,
+   then under the stage timers; tampered
+   final codeword, query value and Merkle sibling fail, and so do random
+   evaluations; K5 and K6 must launch;
+21. K6 over the three passes of a 2^24 forward and K5 over a 2^24-leaf tree,
+   beside their plain versions and bounds (wide multiply-adds and 32-bit
+   logic/shift ops at the rates probed in phase 2).
 
 The next-to-last line is ``{"kernels": [...]}``, the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -277,12 +297,18 @@ def random_table(ctx, rng, log_n: int, device):
     return limbs_from_numpy(limbs, device), want_sum
 
 
+SUCCINCT_KERNELS = ("mont_mul", "fold", "addsub", "msm_buckets", "msm_bucket_reduce")
+
+
 def _wrappers() -> dict:
     from tpu_zk_torch.curves import kernels as curve_kernels
     from tpu_zk_torch.fields import kernels
+    from tpu_zk_torch.merkle import kernels as merkle_kernels
+    from tpu_zk_torch.ntt import kernels as ntt_kernels
 
     return {"mont_mul": kernels.mont_mul, "fold": kernels.fold, "addsub": kernels.addsub,
-            "msm_buckets": curve_kernels.msm_buckets, "msm_bucket_reduce": curve_kernels.msm_bucket_reduce}
+            "msm_buckets": curve_kernels.msm_buckets, "msm_bucket_reduce": curve_kernels.msm_bucket_reduce,
+            "keccak_rows": merkle_kernels.keccak_rows, "dif_pass": ntt_kernels.dif_pass}
 
 
 def reset_launches() -> None:
@@ -790,8 +816,8 @@ def succinct_main_path(device, rng, setup, setup_times: dict) -> dict:
     if (len(proof.sumcheck_proofs) != depth or len(proof.input_rb_proof.proofs) != depth
             or len(proof.input_rc_proof.proofs) != depth or proof.input_polynomial_commitment is None):
         raise AssertionError(f"succinct GKR depth {depth}: wrong number of layers or quotient points")
-    for name, count in launches.items():
-        if count == 0:
+    for name in SUCCINCT_KERNELS:
+        if launches[name] == 0:
             raise AssertionError(f"succinct GKR main path at depth {depth} never launched kernel {name}")
     for what, change in (("wb evaluation", lambda q: q.wb_evaluations.__setitem__(0, q.wb_evaluations[0] + 1)),
                          ("KZG evaluation", lambda q: setattr(q.input_rb_proof, "evaluation", q.input_rb_proof.evaluation + 1)),
@@ -807,7 +833,7 @@ def succinct_main_path(device, rng, setup, setup_times: dict) -> dict:
         raise AssertionError(f"succinct GKR depth {depth}: the warm proof differs or does not verify")
     peak = torch.cuda.max_memory_allocated() / 2**30
     del warm
-    (_, prove_stages, prove_calls, prove_whole), t_prove_timers = sync_time(
+    (_, prove_stages, prove_calls, prove_each), t_prove_timers = sync_time(
         lambda: breakdown.staged(lambda: sparse.prove_succinct(circuit, table, setup), device, breakdown.SUCCINCT_STAGES))
     (_, verify_stages, _, _), t_verify_timers = sync_time(
         lambda: breakdown.staged(lambda: sparse.verify_succinct(circuit, received, setup), device,
@@ -816,7 +842,7 @@ def succinct_main_path(device, rng, setup, setup_times: dict) -> dict:
         "depth": depth, "gates": (1 << depth) - 1, **setup_times, "prove_first_s": t_prove, "to_json_s": t_json,
         "proof_json_bytes": len(proof_json), "verify_first_s": t_verify, "prove_warm_s": t_prove_warm,
         "verify_warm_s": t_verify_warm, "peak_mem_gib": peak, "launches": launches,
-        "prove_with_timers_s": t_prove_timers, "prove_whole_s": prove_whole, "prove_stages_s": prove_stages,
+        "prove_with_timers_s": t_prove_timers, "prove_whole_s": breakdown.whole_s(prove_each), "prove_stages_s": prove_stages,
         "prove_stage_calls": prove_calls,
         "verify_with_timers_s": t_verify_timers, "verify_stages_s": verify_stages,
     }
@@ -879,13 +905,16 @@ def kernel_times(device, gen) -> dict:
     return out
 
 
-def kernels_line(times: dict, launches: dict, k4_small: dict, k4_main: dict, rate: float) -> list[dict]:
+def kernels_line(times: dict, launches: dict, k4_small: dict, k4_main: dict, k56: dict, rate: float) -> list[dict]:
     """The {"kernels": [...]} rows.  K1-K3: times at a depth-24 GKR round's
     shapes, the basic sumcheck's beside them.  K4a, K4b: times at the 2^24
     MSM's shape, K4a's plain version run there lane by lane (one call cannot
     hold its slots) and its times added up; both kernels' times at 2^12
-    points beside them.  ``launches`` is the depth-24 succinct path's count.  No PyTorch call
-    computes any of these functions, so ``library_ms`` is null."""
+    points beside them.  K5, K6: time per launch over one 2^24-leaf tree and
+    one 2^24 forward transform.  ``launches`` is the depth-24 succinct
+    path's count for K1-K4 and the 2^24 NTT -> FRI path's for K5 and K6;
+    every path's count is beside it.  No PyTorch call computes any of these
+    functions, so ``library_ms`` is null."""
     from tpu_zk_torch.fields.arith import field_ctx
 
     ctx = field_ctx("bn254_fr")
@@ -930,7 +959,410 @@ def kernels_line(times: dict, launches: dict, k4_small: dict, k4_main: dict, rat
                      "small_shape": f"2^{K4_CHECK_LOG_N} points", "small_ms": k4_small[key]["ms"],
                      "small_plain_ms": k4_small[key]["plain_ms"],
                      "max_abs_err_is": "points unequal to the plain version's as group elements"})
+    for name, key, source, replaces in (
+        ("keccak_rows", "K5", "tpu_zk_torch/csrc/keccak.cu", "tpu_zk/merkle/device_merkle.py:81"),
+        ("dif_pass", "K6", "tpu_zk_torch/csrc/ntt.cu", "tpu_zk/ntt/sixstep.py:112, tpu_zk/fields/mxu_mul.py:405"),
+    ):
+        row = dict(k56[key])
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches["fri"][name], "launches_by_path": {p: n[name] for p, n in launches.items()},
+                     "library_ms": None, **row})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 17-21: the NTT -> Merkle-committed FRI path (K5, K6)
+# ---------------------------------------------------------------------------
+
+NTT_LOG_NS = (24, 20)  # the main path's table size, then BASELINE config 2's
+FRI_LOG_NS = (24, 18)  # a 2^24 low-degree-extension domain, then BASELINE config 3's
+FRI_PARITY_LOG_N = 10
+POLY_LOG_N = 20  # polynomial_multiply of two degree-2^19 - 1 polynomials
+HORNER_POINTS = 32
+K5_WIDTHS = (0, 1, 32, 64, 135)
+K5_ROWS = (1, 3, 1000, 65537, 1 << 22)
+# K6 blocks (A, m, C): every radix the plans use (2^8 at 2^24, 2^10 at 2^20, 2^9 at 2^18), the small ones
+# of the tests, ragged column counts
+K6_SHAPES = ((1, 256, 4096), (3, 256, 5), (2, 512, 129), (1, 1024, 64), (5, 1024, 1), (7, 1, 3), (1, 2, 1000),
+             (4, 8, 33))
+
+
+def keccak_ops(w: int) -> int:
+    """The 32-bit logic and shift instructions that one Keccak-256 of a
+    w-byte row needs at least (csrc/keccak.cu's count), each 64-bit lane two
+    32-bit halves: a full round is 180 (theta's column parities 20 and
+    rot1 10 by funnel shifts, its application A ^ C[x-1] ^ rot1(C[x+1]) one
+    three-input op a half, 50; rho 48 funnel shifts, chi 50, iota 2).  The
+    first round is cheaper where the padded block leaves lanes zero, and the
+    last computes only the four lanes of the digest."""
+    from tpu_zk_torch.transcript.keccak import _RC, _ROT
+
+    src = {y + 5 * ((2 * x + 3 * y) % 5): (x + 5 * y, _ROT[x][y]) for x in range(5) for y in range(5)}  # pi
+    block = [any(8 * k + b in (w, 135) or 8 * k + b < w for b in range(8)) for k in range(25)]
+    total = 0
+    for rnd in range(24):
+        nz = block if rnd == 0 else [True] * 25  # lanes that may be nonzero
+        outs = range(4) if rnd == 23 else range(25)
+        needed = {5 * (i // 5) + (i % 5 + d) % 5 for i in outs for d in range(3)}  # chi's inputs
+        col = [sum(nz[x + 5 * y] for y in range(5)) for x in range(5)]
+        ops = sum(2 * (k // 2) for k in col) + sum(2 for k in col if k)  # parities; rot1 of each
+        d_terms = [(col[(x + 4) % 5] > 0) + (col[(x + 1) % 5] > 0) for x in range(5)]
+        theta_nz, shared_d = {}, set()
+        for b in needed:
+            lane, rot = src[b]
+            x = lane % 5
+            if nz[lane]:
+                ops += 2 if d_terms[x] else 0
+            elif d_terms[x] == 2:
+                shared_d.add(x)  # D[x] made once for the column's zero lanes
+            theta_nz[b] = nz[lane] or d_terms[x] > 0
+            ops += 2 if rot and theta_nz[b] else 0
+        ops += 2 * len(shared_d)
+        ops += sum(2 for i in outs if theta_nz[5 * (i // 5) + (i % 5 + 2) % 5])  # chi: nothing to do when c is 0
+        rc = int(_RC[rnd])
+        total += ops + ((rc & 0xFFFFFFFF) != 0) + ((rc >> 32) != 0)
+    return total
+
+
+def k6_products(ctx, plan) -> int:
+    """The Montgomery products that one transform of ``plan`` needs: each
+    butterfly's hi = (u - v) w except where w = w^0 = 1 (slot 0 of each
+    group of each stage: m - 1 of a column's m/2 log2 m), each pre-twiddle
+    that is not 1 (counted on the plan's tables) and the inverse's scale."""
+    one = ctx.one_mont(plan.device)
+    n = 0
+    for m, pre in zip(plan.ms, plan.pres):
+        n += plan.N // m * (m // 2 * (m.bit_length() - 1) - (m - 1))
+        if pre is not None:
+            n += int((pre != one).any(-1).sum())
+    return n + (plan.N if plan.scale is not None else 0)
+
+
+def logic_rate(device) -> float:
+    """The card's 32-bit funnel shifts and logic ops per second, by
+    csrc/probe.cu: the instructions of K5's permutation."""
+    import ctypes
+
+    from tpu_zk_torch import _build
+
+    lib = _build.kernel_library()
+    blocks = torch.cuda.get_device_properties(device).multi_processor_count * 8
+    iters = 1 << 16
+    out = torch.empty(blocks * 256, dtype=torch.int32, device=device)
+
+    def launch():
+        rc = lib.tzk_logic_probe(ctypes.c_void_p(out.data_ptr()), blocks, iters, 7, 0x9E3779B1,
+                                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if rc != 0:
+            raise RuntimeError(f"tzk_logic_probe: cudaError_t {rc}")
+
+    rate = blocks * 256 * 16 * iters / (event_ms(launch, 5) / 1e3)
+    log(f"probe: {rate:.4e} 32-bit funnel shifts and logic ops per second")
+    return rate
+
+
+def check_k6(device, gen) -> None:
+    """Phase 17: K6 against its plain version, bit-exact, both Fr fields."""
+    from tpu_zk_torch.fields.arith import field_ctx
+    from tpu_zk_torch.ntt import kernels
+    from tpu_zk_torch.ntt.sixstep import SixStepPlan
+
+    cases = 0
+    for name in ("bn254_fr", "bls12_381_fr"):
+        ctx = field_ctx(name)
+        for A, m, C in K6_SHAPES:
+            log_m = m.bit_length() - 1
+            root = pow(5, (ctx.p - 1) >> log_m, ctx.p)  # an m-th root of unity (any one will do)
+            tws = SixStepPlan(name, log_m, root, device=device).tws[0]
+            x, pre = rand_canonical(ctx, (A, m, C), gen, device), rand_canonical(ctx, (A, m, C), gen, device)
+            scale = rand_canonical(ctx, (), gen, device)
+            dst = torch.randperm(A * m * C, generator=gen, device=device)
+            for what, args in (("", ()), (" pre", (pre,)), (" pre scale", (pre, scale)), (" scale", (None, scale)),
+                               (" pre scale dst", (pre, scale, dst))):
+                check_equal(f"K6 {name} [{A}, {m}, {C}]{what}", kernels.dif_pass(ctx, x, tws, *args),
+                            kernels.dif_pass_plain(ctx, x, tws, *args))
+                cases += 1
+    log(f"K6: {cases} cases bit-exact (both Fr fields; radix 1 to 2^10; pre-twiddle, scale, natural-order store; "
+        f"ragged column counts)")
+
+
+def check_k5(device, gen) -> None:
+    """Phase 18: K5 against its plain version, bit-exact."""
+    from tpu_zk_torch.merkle import kernels
+
+    for w in K5_WIDTHS:
+        for n in K5_ROWS:
+            rows = torch.randint(0, 256, (n, w), generator=gen, device=device, dtype=torch.uint8)
+            check_equal(f"K5 w={w} N={n}", kernels.keccak_rows(rows), kernels.keccak_rows_plain(rows))
+    flat = torch.randint(0, 256, (1001 * 64,), generator=gen, device=device, dtype=torch.uint8)
+    for offset in (8, 1):  # rows 8 bytes into a 16-byte line (8-byte loads), and 1 byte (byte loads)
+        rows = flat[offset : offset + 999 * 64].view(999, 64)
+        check_equal(f"K5 rows at byte offset {offset}", kernels.keccak_rows(rows), kernels.keccak_rows_plain(rows))
+    log(f"K5: widths {K5_WIDTHS} x rows {K5_ROWS}, and rows at byte offsets 8 and 1, bit-exact")
+
+
+def horner(coeffs: list, x: int, p: int) -> int:
+    """coeffs(x) mod p on host ints: Horner in blocks of 1024 coefficients,
+    each block one dot product with the powers of x."""
+    import operator
+
+    block = 1024
+    powers = [1] * block
+    for i in range(1, block):
+        powers[i] = powers[i - 1] * x % p
+    step = powers[-1] * x % p
+    acc = 0
+    for start in range((len(coeffs) - 1) // block * block, -1, -block):
+        acc = (acc * step + sum(map(operator.mul, coeffs[start : start + block], powers))) % p
+    return acc
+
+
+def ntt_path(device, gen, rng) -> dict:
+    """Phase 19: NTT.forward/inverse at 2^24 and 2^20, polynomial_multiply at
+    2^20; K6 must launch."""
+    from tpu_zk_torch.fields.arith import field_ctx
+    from tpu_zk_torch.ntt.ntt import NTT, polynomial_multiply
+
+    ctx = field_ctx("bn254_fr")
+    out = {"runs": []}
+    reset_launches()
+    for log_n in NTT_LOG_NS:
+        t = NTT("bn254_fr", log_n, device=device)
+        table = rand_canonical(ctx, (1 << log_n,), gen, device)
+        torch.cuda.reset_peak_memory_stats()
+        fwd, t_fwd = sync_time(lambda: t.forward(table))
+        back, t_inv = sync_time(lambda: t.inverse(fwd))
+        if not torch.equal(back, table):
+            raise AssertionError(f"NTT 2^{log_n}: inverse(forward(x)) != x")
+        del back
+        _, t_fwd_warm = sync_time(lambda: t.forward(table))
+        _, t_inv_warm = sync_time(lambda: t.inverse(fwd))
+        run = {"log_n": log_n, "passes": t.plan(False, table.device).ms, "forward_first_s": t_fwd,
+               "inverse_first_s": t_inv, "forward_warm_s": t_fwd_warm, "inverse_warm_s": t_inv_warm,
+               "forward_warm_ms_events": event_ms(lambda: t.forward(table), 5),
+               "inverse_warm_ms_events": event_ms(lambda: t.inverse(fwd), 5),
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if log_n == min(NTT_LOG_NS):
+            if not torch.equal(fwd, t.forward_stagewise(table)):
+                raise AssertionError(f"NTT 2^{log_n}: the multi-pass forward differs from the stage-at-a-time oracle")
+            if not torch.equal(t.inverse(fwd), t.inverse_stagewise(fwd)):
+                raise AssertionError(f"NTT 2^{log_n}: the multi-pass inverse differs from the stage-at-a-time oracle")
+            run["equals_stagewise"] = True
+        out["runs"].append(run)
+        log(f"NTT bn254_fr 2^{log_n}: " + json.dumps(run))
+        del t, table, fwd
+
+    half = 1 << (POLY_LOG_N - 1)
+    a = [int.from_bytes(rng.bytes(32), "little") % ctx.p for _ in range(half)]
+    b = [int.from_bytes(rng.bytes(32), "little") % ctx.p for _ in range(half)]
+    c, t_mul = sync_time(lambda: polynomial_multiply("bn254_fr", a, b))  # host ints, no device: the card
+    if len(c) != 2 * half - 1:
+        raise AssertionError("polynomial_multiply: wrong product length")
+    t0 = time.perf_counter()
+    for _ in range(HORNER_POINTS):
+        x = int.from_bytes(rng.bytes(32), "little") % ctx.p
+        if horner(a, x, ctx.p) * horner(b, x, ctx.p) % ctx.p != horner(c, x, ctx.p):
+            raise AssertionError(f"polynomial_multiply: the product differs from a(x) b(x) at x = {x}")
+    t_horner = time.perf_counter() - t0
+    out["launches"] = read_launches()
+    out["polynomial_multiply"] = {"degree": half - 1, "s": t_mul, "horner_points": HORNER_POINTS,
+                                  "horner_s": t_horner}
+    if out["launches"]["dif_pass"] == 0 or out["launches"]["mont_mul"] == 0:
+        raise AssertionError(f"NTT path never launched K6 or K1: {out['launches']}")
+    log(f"polynomial_multiply bn254_fr degree 2^{POLY_LOG_N - 1} - 1 (host ints in and out): {t_mul:.3f} s; equals "
+        f"a(x) b(x) at {HORNER_POINTS} random points (Horner on host ints, {t_horner:.1f} s); NTT path launches "
+        + json.dumps(out["launches"]))
+    return out
+
+
+def fri_stages() -> list:
+    """(owner, attribute, stage): the stage timers of the NTT -> FRI path."""
+    from tpu_zk_torch.fri import fri
+    from tpu_zk_torch.ntt.sixstep import SixStepPlan
+    from tpu_zk_torch.transcript.fiat_shamir import Transcript
+
+    return [
+        (SixStepPlan, "__call__", "NTT (K6 passes)"),
+        (fri, "field_leaf_bytes", "leaf bytes (from_mont K1, byte order)"),
+        (fri, "merkle_tree_flat", "Merkle levels (K5)"),
+        (fri, "fold_codeword", "fold (K1, K3)"),
+        (Transcript, "append", "host transcript (absorb)"),
+        (Transcript, "sample_random_challenge", "host transcript (squeeze)"),
+        (fri, "_gather_openings", "query gathers and copy"),
+        (fri, "verify_path", "verify: host Merkle paths"),
+    ]
+
+
+def fri_codeword(ctx, log_n: int, gen, device):
+    """The NTT of a polynomial of degree < 2^(log_n - 2): random coefficients
+    at 2^24, ``bench_fri``'s own table (limb 0 of coefficient i is
+    i mod 65521, as Montgomery limbs) otherwise."""
+    from tpu_zk_torch.fields import arith
+    from tpu_zk_torch.ntt.ntt import NTT
+
+    n, deg = 1 << log_n, 1 << (log_n - 2)
+    if log_n == max(FRI_LOG_NS):
+        coeffs = torch.zeros((n, ctx.L), dtype=torch.int32, device=device)
+        coeffs[:deg] = arith.to_mont(ctx, rand_canonical(ctx, (deg,), gen, device))
+    else:
+        coeffs = torch.zeros((n, ctx.L), dtype=torch.int32, device=device)
+        coeffs[:deg, 0] = torch.arange(deg, device=device, dtype=torch.int32) % 65521
+    return NTT(ctx.name, log_n, device=device).forward(coeffs)
+
+
+def fri_parity(device, gen) -> None:
+    """The proof from the card equals the CPU's (plain versions) at 2^10."""
+    from tpu_zk_torch.fri import fri
+    from tpu_zk_torch.ntt.ntt import NTT
+    from tpu_zk_torch.transcript.fiat_shamir import Transcript
+
+    cfg = fri.FriConfig("bn254_fr", FRI_PARITY_LOG_N, final_size_log2=4, num_queries=20, blowup_log2=2)
+    n = 1 << FRI_PARITY_LOG_N
+    coeffs = torch.zeros((n, cfg.ctx.L), dtype=torch.int32, device=device)
+    coeffs[: n >> 2] = rand_canonical(cfg.ctx, (n >> 2,), gen, device)
+    proofs = []
+    for dev in (device, torch.device("cpu")):
+        codeword = NTT("bn254_fr", FRI_PARITY_LOG_N, device=dev).forward(coeffs.to(dev))
+        proof = fri.prove(cfg, codeword, Transcript())
+        if not fri.verify(cfg, proof, Transcript()):
+            raise AssertionError(f"FRI parity 2^{FRI_PARITY_LOG_N}: the proof on {dev} does not verify")
+        proofs.append(proof)
+    if proofs[0] != proofs[1]:
+        raise AssertionError(f"FRI parity 2^{FRI_PARITY_LOG_N}: the proof from the card differs from the CPU's")
+    log(f"FRI parity 2^{FRI_PARITY_LOG_N} bn254_fr: CUDA proof == CPU proof (roots, final codeword, every query), "
+        "both verify")
+
+
+def _tampered(proof, how: str):
+    import copy
+
+    proof = copy.deepcopy(proof)
+    if how == "final codeword":
+        proof.final_codeword[0] += 1
+    elif how == "query value":
+        proof.queries[0][0].value_lo += 1
+    else:  # a Merkle sibling
+        path = proof.queries[0][1].path_hi
+        path[2] = bytes([path[2][0] ^ 1]) + path[2][1:]
+    return proof
+
+
+def fri_path(device, gen, log_n: int) -> dict:
+    """Phase 20: NTT of a low-degree polynomial, fri.prove, fri.verify,
+    first call and warm, then once under the stage timers (K5's Merkle
+    levels round by round among them); tampered proofs and a high-degree
+    codeword fail; K5 and K6 must launch."""
+    from tpu_zk_torch.fields.arith import field_ctx
+    from tpu_zk_torch.fri import fri
+    from tpu_zk_torch.gkr import breakdown
+    from tpu_zk_torch.transcript.fiat_shamir import Transcript
+
+    ctx = field_ctx("bn254_fr")
+    cfg = fri.FriConfig("bn254_fr", log_n, final_size_log2=4, num_queries=20, blowup_log2=2)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    codeword, t_ntt = sync_time(lambda: fri_codeword(ctx, log_n, gen, device))
+    proof, t_prove = sync_time(lambda: fri.prove(cfg, codeword, Transcript()))
+    ok, t_verify = sync_time(lambda: fri.verify(cfg, proof, Transcript()))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not ok:
+        raise AssertionError(f"FRI 2^{log_n}: the proof does not verify")
+    if len(proof.roots) != cfg.num_rounds or len(proof.queries) != 20 or len(proof.final_codeword) != 16:
+        raise AssertionError(f"FRI 2^{log_n}: wrong number of rounds, queries or final values")
+    for name in ("dif_pass", "keccak_rows", "mont_mul", "addsub"):
+        if launches[name] == 0:
+            raise AssertionError(f"FRI path at 2^{log_n} never launched kernel {name}: {launches}")
+    for how in ("final codeword", "query value", "Merkle sibling"):
+        if fri.verify(cfg, _tampered(proof, how), Transcript()):
+            raise AssertionError(f"FRI 2^{log_n}: a proof with a tampered {how} verifies")
+    warm, t_prove_warm = sync_time(lambda: fri.prove(cfg, codeword, Transcript()))
+    ok, t_verify_warm = sync_time(lambda: fri.verify(cfg, warm, Transcript()))
+    if not ok or warm != proof:
+        raise AssertionError(f"FRI 2^{log_n}: the warm proof differs or does not verify")
+    del warm
+    noise = rand_canonical(ctx, (1 << log_n,), gen, device)  # random evaluations: degree far above 2^(log_n - 2)
+    if fri.verify(cfg, fri.prove(cfg, noise, Transcript()), Transcript()):
+        raise AssertionError(f"FRI 2^{log_n}: random evaluations pass the low-degree test")
+    del noise
+    (_, stages, calls, each), t_timed = sync_time(lambda: breakdown.staged(
+        lambda: fri.verify(cfg, fri.prove(cfg, fri_codeword(ctx, log_n, gen, device), Transcript()), Transcript()),
+        device, fri_stages()))
+    out = {"log_n": log_n, "rounds": cfg.num_rounds, "ntt_s": t_ntt, "prove_first_s": t_prove,
+           "verify_first_s": t_verify, "prove_warm_s": t_prove_warm, "verify_warm_s": t_verify_warm,
+           "peak_mem_gib": peak, "launches": launches, "ntt_prove_verify_with_timers_s": t_timed,
+           "stages_s": stages, "stage_calls": calls,
+           "merkle_levels_s_by_round": each["Merkle levels (K5)"]}
+    log(f"FRI path bn254_fr 2^{log_n}: " + json.dumps(out) + "; tampered final codeword, query value and Merkle "
+        "sibling rejected; random evaluations rejected")
+    return out
+
+
+def k56_times(device, gen, rate: float, lrate: float) -> dict:
+    """Phase 21: K6 over the three passes of one 2^24 forward and K5 over one
+    2^24-leaf tree (the FRI path's largest), beside their plain versions
+    and bounds, all per launch."""
+    import math
+
+    from tpu_zk_torch.fields.arith import field_ctx
+    from tpu_zk_torch.merkle import kernels as mk
+    from tpu_zk_torch.merkle.device_merkle import merkle_tree_flat
+    from tpu_zk_torch.ntt import kernels as nk
+    from tpu_zk_torch.ntt.ntt import NTT
+
+    ctx = field_ctx("bn254_fr")
+    log_n = max(FRI_LOG_NS)
+    N, L, elem = 1 << log_n, ctx.L, ctx.L * 4
+    plan = NTT("bn254_fr", log_n, device=device).plan(False, device)
+    table = rand_canonical(ctx, (N,), gen, device)
+    R = len(plan.ms)
+    views = [table.view(math.prod(plan.ms[:i]), m, math.prod(plan.ms[i + 1 :]), L) for i, m in enumerate(plan.ms)]
+    args = [(plan.tws[i], plan.pres[i]) + ((None, plan.dst) if i == R - 1 else ()) for i in range(R)]
+    k6_err = 0
+    for i in range(R):
+        got, want = nk.dif_pass(ctx, views[i], *args[i]), nk.dif_pass_plain(ctx, views[i], *args[i])
+        k6_err = max(k6_err, max_err(got, want))
+        check_equal(f"K6 2^{log_n} pass {i}", got, want)
+        del got, want
+    passes_ms = [event_ms(lambda i=i: nk.dif_pass(ctx, views[i], *args[i]), 10) for i in range(R)]
+    plain_ms = event_ms(lambda: [nk.dif_pass_plain(ctx, views[i], *args[i]) for i in range(R)], 1)
+    products = k6_products(ctx, plan)
+    n_bytes = sum(2 * N * elem + (N * elem if i else 0) for i in range(R)) + N * 8
+    least, by = bound_ms(n_bytes, products * mont_mul_wide_mads(ctx), rate)
+    k6 = {"ms": sum(passes_ms) / R, "passes_ms": passes_ms, "plain_ms": plain_ms / R, "bound_ms": least / R,
+          "bound_by": by, "max_abs_err": k6_err, "shape": f"one 2^{log_n} forward: {R} passes of radix {plan.ms}"}
+    del table, views, args, plan
+
+    leaves = torch.randint(0, 256, (N, 32), generator=gen, device=device, dtype=torch.uint8)
+    tree = merkle_tree_flat(leaves)
+    levels = log_n + 1
+    tree_ms = event_ms(lambda: merkle_tree_flat(leaves), 10)
+
+    def plain_tree():
+        flat = torch.empty_like(tree)
+        flat[:N] = mk.keccak_rows_plain(leaves)
+        off, width = 0, N
+        while width > 1:
+            flat[off + width : off + width + width // 2] = mk.keccak_rows_plain(flat[off : off + width].view(-1, 64))
+            off, width = off + width, width // 2
+        return flat
+
+    want = plain_tree()
+    k5_err = max_err(tree, want)
+    check_equal(f"K5 2^{log_n}-leaf tree", tree, want)
+    del want
+    plain_tree_ms = event_ms(plain_tree, 1)
+    hashes = 2 * N - 1
+    by_bytes = (N * 32 + (N - 1) * 64 + hashes * 32) / HBM_BYTES_PER_S * 1e3
+    by_ops = (N * keccak_ops(32) + (N - 1) * keccak_ops(64)) / lrate * 1e3
+    least, by = (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+    k5 = {"ms": tree_ms / levels, "tree_ms": tree_ms, "plain_ms": plain_tree_ms / levels, "bound_ms": least / levels,
+          "bound_by": by, "max_abs_err": k5_err, "shape": f"one 2^{log_n}-leaf tree: {levels} launches, {hashes} hashes",
+          "leaf_level_ms": event_ms(lambda: mk.keccak_rows(leaves, out=tree[:N]), 10)}
+    log(f"K6 2^{log_n} forward: passes {passes_ms} ms (plain {plain_ms:.1f} ms in all), bound {k6['bound_ms'] * R:.4f} ms "
+        f"({by}); K5 2^{log_n}-leaf tree {tree_ms:.4f} ms (leaf level {k5['leaf_level_ms']:.4f} ms; plain "
+        f"{plain_tree_ms:.1f} ms), bound {least:.4f} ms ({k5['bound_by']})")
+    return {"K5": k5, "K6": k6}
 
 
 def main() -> None:
@@ -938,6 +1370,7 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    t_script = time.perf_counter()
     # 1. the card
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card")
@@ -959,6 +1392,7 @@ def main() -> None:
     log(f"build: kernels {t1 - t0:.2f} s, keccak {t2 - t1:.2f} s, pairing {time.perf_counter() - t2:.2f} s")
     log("ptxas: " + json.dumps(_build.resource_usage()))
     rate = wide_mad_rate(device)
+    lrate = logic_rate(device)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
@@ -982,10 +1416,21 @@ def main() -> None:
     setup, taus, setup_times = timed_setup(device, SUCCINCT_DEPTH, args.seed)
     k4_main = msm_alone(device, rng, setup, taus, rate)  # 15
     succinct_run = succinct_main_path(device, rng, setup, setup_times)  # 16
-    launches = {"sumcheck": sumcheck_runs[0]["launches"], "gkr": gkr_runs[0]["launches"],
-                "succinct": succinct_run["launches"]}
+    del setup
 
-    log(json.dumps({"kernels": kernels_line(times, launches, k4_small, k4_main["kernels"], rate)}))
+    t_new = time.perf_counter()
+    check_k6(device, gen)  # 17
+    check_k5(device, gen)  # 18
+    ntt_run = ntt_path(device, gen, rng)  # 19
+    fri_parity(device, gen)  # 20
+    fri_runs = [fri_path(device, gen, log_n) for log_n in FRI_LOG_NS]
+    k56 = k56_times(device, gen, rate, lrate)  # 21
+    log(f"phases 17-21 (NTT, Merkle, FRI): {time.perf_counter() - t_new:.1f} s; "
+        f"whole script so far {time.perf_counter() - t_script:.1f} s")
+    launches = {"sumcheck": sumcheck_runs[0]["launches"], "gkr": gkr_runs[0]["launches"],
+                "succinct": succinct_run["launches"], "ntt": ntt_run["launches"], "fri": fri_runs[0]["launches"]}
+
+    log(json.dumps({"kernels": kernels_line(times, launches, k4_small, k4_main["kernels"], k56, rate)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -199,6 +199,8 @@ def test_import_without_jax():
         "import tpu_zk_torch.kzg.trusted_setup, tpu_zk_torch.curves.params, tpu_zk_torch.curves.pairing\n"
         "import tpu_zk_torch.curves.host_ec, tpu_zk_torch.curves.pairing_native, tpu_zk_torch.curves.ec_device\n"
         "import tpu_zk_torch.curves.fixed_base, tpu_zk_torch.curves.kernels, tpu_zk_torch.curves.msm_pippenger\n"
+        "import tpu_zk_torch.ntt.ntt, tpu_zk_torch.ntt.sixstep, tpu_zk_torch.ntt.kernels, tpu_zk_torch.fri.fri\n"
+        "import tpu_zk_torch.merkle.merkle, tpu_zk_torch.merkle.device_merkle, tpu_zk_torch.merkle.kernels\n"
         "import chip_smoke\n"
         "assert not [m for m in sys.modules if m == 'tpu_zk' or m.startswith('tpu_zk.')], 'imported tpu_zk'\n"
     )

@@ -1,4 +1,4 @@
-"""tpu_zk_torch: tpu_zk's sumcheck, GKR, curves, MSM, multilinear KZG and succinct GKR on PyTorch, with CUDA kernels for Hopper.
+"""tpu_zk_torch: tpu_zk's sumcheck, GKR, curves, MSM, multilinear KZG, succinct GKR, NTT, Merkle trees and FRI on PyTorch, with CUDA kernels for Hopper.
 
 Imports torch and numpy, never JAX or ``tpu_zk``.  Tensors carry their
 device; tensors made from host values go to the CUDA card unless the caller

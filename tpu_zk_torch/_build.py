@@ -85,10 +85,16 @@ KERNEL_ARGTYPES = {
     "tzk_msm_bucket_reduce": [_PTR, _PTR, _PTR, _PTR, _I64, _I32, _PTR, _U32, _PTR],
     # L -> threads of tzk_msm_buckets the card keeps resident at once (negative: -cudaError_t)
     "tzk_msm_resident_threads": [_I32],
+    # x, tws, pre, scale, dst, out, A, log_m, C, L, p32, n0inv, stream (csrc/ntt.cu); pre, scale, dst may be null
+    "tzk_ntt_pass": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I32, _I64, _I32, _PTR, _U32, _PTR],
+    # data, out, n rows, w bytes a row, stream (csrc/keccak.cu)
+    "tzk_keccak_rows": [_PTR, _PTR, _I64, _I32, _PTR],
     # out, blocks (of 256 threads), iters, a, b, stream: blocks * 256 * 8 * iters multiply-adds (csrc/probe.cu)
     "tzk_imad_probe": [_PTR, _I32, _I32, _U32, _U32, _PTR],
     # out, blocks, iters, a, stream: as many wide (32 x 32 + 64 -> 64 bit) multiply-adds, the CIOS instruction
     "tzk_wide_mad_probe": [_PTR, _I32, _I32, _U32, _PTR],
+    # out, blocks, iters, s, k, stream: blocks * 256 * 16 * iters 32-bit funnel shifts and logic ops
+    "tzk_logic_probe": [_PTR, _I32, _I32, _U32, _U32, _PTR],
 }
 
 
@@ -147,6 +153,10 @@ def keccak_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     lib.keccak_absorb_blocks.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint64]
     lib.keccak_absorb_blocks.restype = None
+    # messages or leaves, count, bytes each, out: [count, 32] digests / every tree level, [2 count - 1, 32]
+    for fn in (lib.keccak256_many, lib.merkle_build):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint64, ctypes.c_void_p]
+        fn.restype = None
     return lib
 
 

@@ -24,6 +24,14 @@ struct FieldParams {
   uint32_t n0inv;           // -p^{-1} mod 2^32
 };
 
+// The kernel argument from the wrapper's n 32-bit modulus limbs (host side).
+inline FieldParams make_params(const uint32_t* p32, int n, uint32_t n0inv) {
+  FieldParams f{};
+  for (int j = 0; j < n; ++j) f.p[j] = p32[j];
+  f.n0inv = n0inv;
+  return f;
+}
+
 // 2N 16-bit limbs in int32 words (16-byte aligned) -> N 32-bit limbs.
 template <int N>
 __device__ __forceinline__ void load_elem(const uint32_t* __restrict__ src, uint32_t (&x)[N]) {

@@ -135,13 +135,6 @@ __global__ void __launch_bounds__(kFoldThreads)
   }
 }
 
-FieldParams make_params(const uint32_t* p32, int n, uint32_t n0inv) {
-  FieldParams f{};
-  for (int j = 0; j < n; ++j) f.p[j] = p32[j];
-  f.n0inv = n0inv;
-  return f;
-}
-
 }  // namespace tzk
 
 extern "C" {

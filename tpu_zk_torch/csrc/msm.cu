@@ -116,13 +116,6 @@ __global__ void __launch_bounds__(kMsmThreads)
   store_elem<N>(o + 2 * L, tot.z);
 }
 
-static FieldParams msm_params(const uint32_t* p32, int n, uint32_t n0inv) {
-  FieldParams f{};
-  for (int j = 0; j < n; ++j) f.p[j] = p32[j];
-  f.n0inv = n0inv;
-  return f;
-}
-
 template <int N>
 static int resident_threads() {
   int device = 0, sms = 0, blocks = 0;
@@ -143,7 +136,7 @@ int tzk_msm_buckets(const void* px, const void* py, const void* pz, const void* 
                     const void* one, void* buckets, int64_t n, int W, int lanes, int L, const uint32_t* p32,
                     uint32_t n0inv, void* stream) {
   using namespace tzk;
-  const FieldParams f = msm_params(p32, L / 2, n0inv);
+  const FieldParams f = make_params(p32, L / 2, n0inv);
   const int64_t threads = (int64_t)W * lanes;
   const int64_t blocks = (threads + kMsmThreads - 1) / kMsmThreads;
   if (blocks <= 0 || blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidConfiguration;
@@ -172,7 +165,7 @@ int tzk_msm_buckets(const void* px, const void* py, const void* pz, const void* 
 int tzk_msm_bucket_reduce(const void* buckets, const void* b3, const void* one, void* out, int64_t threads, int L,
                           const uint32_t* p32, uint32_t n0inv, void* stream) {
   using namespace tzk;
-  const FieldParams f = msm_params(p32, L / 2, n0inv);
+  const FieldParams f = make_params(p32, L / 2, n0inv);
   const int64_t blocks = (threads + kMsmThreads - 1) / kMsmThreads;
   if (blocks <= 0 || blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -8,6 +8,11 @@
 // in which the field and curve kernels' operation bounds are counted.
 // tzk_imad_probe times the 32-bit form x * a + b beside it, to show how the
 // two rates stand to each other.
+//
+// tzk_logic_probe times 32-bit funnel shifts and logic ops, two a step
+// (x <- rotl32(x, s) ^ k, with s and k run-time values so that no two steps
+// fold into one): the instructions of csrc/keccak.cu's permutation, whose
+// operation bound is counted in them.
 
 #include <cuda_runtime.h>
 
@@ -51,6 +56,23 @@ __global__ void __launch_bounds__(kProbeThreads) wide_mad_probe_kernel(uint32_t*
   out[(int64_t)blockIdx.x * blockDim.x + threadIdx.x] = (uint32_t)all ^ (uint32_t)(all >> 32);
 }
 
+// Every thread runs kProbeChains independent chains x <- rotl32(x, s) ^ k:
+// one funnel shift and one logic op a step.
+__global__ void __launch_bounds__(kProbeThreads) logic_probe_kernel(uint32_t* __restrict__ out, int iters, uint32_t s, uint32_t k) {
+  uint32_t x[kProbeChains];
+#pragma unroll
+  for (int c = 0; c < kProbeChains; ++c) x[c] = threadIdx.x * 0x9E3779B9u + c;
+#pragma unroll 8
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int c = 0; c < kProbeChains; ++c) x[c] = __funnelshift_l(x[c], x[c], s) ^ k;
+  }
+  uint32_t acc = 0;
+#pragma unroll
+  for (int c = 0; c < kProbeChains; ++c) acc ^= x[c];
+  out[(int64_t)blockIdx.x * blockDim.x + threadIdx.x] = acc;
+}
+
 }  // namespace tzk
 
 extern "C" {
@@ -72,6 +94,16 @@ int tzk_wide_mad_probe(void* out, int blocks, int iters, uint32_t a, void* strea
   if (blocks <= 0 || iters <= 0) return (int)cudaErrorInvalidValue;
   wide_mad_probe_kernel<<<blocks, kProbeThreads, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<uint32_t*>(out),
                                                                                           iters, a);
+  return (int)cudaGetLastError();
+}
+
+// The same launch shape, 8 * iters steps a thread of one funnel shift and one
+// logic op each: 2 * 8 * iters 32-bit logic/shift instructions a thread.
+int tzk_logic_probe(void* out, int blocks, int iters, uint32_t s, uint32_t k, void* stream) {
+  using namespace tzk;
+  if (blocks <= 0 || iters <= 0) return (int)cudaErrorInvalidValue;
+  logic_probe_kernel<<<blocks, kProbeThreads, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<uint32_t*>(out),
+                                                                                      iters, s, k);
   return (int)cudaGetLastError();
 }
 

@@ -91,14 +91,15 @@ SUCCINCT_STAGES = STAGES + [
 
 
 class Timers:
-    """Exclusive and inclusive wall time and calls per stage, and the wall
-    time of each ``_layer_sumcheck`` call by its input table's size."""
+    """Exclusive wall time and calls per stage, the inclusive wall time of
+    each call of each stage, and the wall time of each ``_layer_sumcheck``
+    call by its input table's size."""
 
     def __init__(self, device: torch.device, stages=None):
         self.stages = STAGES if stages is None else stages
         self.sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
         self.total: dict[str, float] = collections.defaultdict(float)  # exclusive of the stages called inside
-        self.inclusive: dict[str, float] = collections.defaultdict(float)
+        self.each: dict[str, list[float]] = collections.defaultdict(list)  # inclusive, call by call
         self.calls: collections.Counter = collections.Counter()
         self.layers: list[tuple[int, float]] = []
         self._stack: list[float] = []
@@ -115,7 +116,7 @@ class Timers:
                 self.sync()
                 dt = time.perf_counter() - t0
                 self.total[stage] += dt - self._stack.pop()
-                self.inclusive[stage] += dt
+                self.each[stage].append(dt)
                 self.calls[stage] += 1
                 if self._stack:
                     self._stack[-1] += dt
@@ -196,14 +197,19 @@ WHOLE_STAGES = ("commit, rest (from_mont)", "open, rest (evaluate, quotients, fo
 
 
 def staged(fn, device, stages=None):
-    """(fn(), exclusive seconds per stage, calls per stage, inclusive seconds
-    of the WHOLE_STAGES that ran) with the stage timers installed around the
-    one call."""
+    """(fn(), exclusive seconds per stage, calls per stage, per stage the
+    inclusive seconds of each call) with the stage timers installed around
+    the one call."""
     timers = Timers(torch.device(device), stages)
     with timers.installed():
         out = fn()
-    whole = {stage.split(",")[0]: timers.inclusive[stage] for stage in WHOLE_STAGES if stage in timers.inclusive}
-    return out, dict(sorted(timers.total.items(), key=lambda kv: -kv[1])), dict(timers.calls), whole
+    return out, dict(sorted(timers.total.items(), key=lambda kv: -kv[1])), dict(timers.calls), dict(timers.each)
+
+
+def whole_s(each: dict) -> dict:
+    """The inclusive seconds of the WHOLE_STAGES that ran, from ``staged``'s
+    per-call times."""
+    return {stage.split(",")[0]: sum(each[stage]) for stage in WHOLE_STAGES if stage in each}
 
 
 def run_succinct(depth: int, device="cuda", seed: int = 0) -> dict:
@@ -238,12 +244,12 @@ def run_succinct(depth: int, device="cuda", seed: int = 0) -> dict:
                      ("verify", lambda: sparse.verify_succinct(circuit, proof, setup))):
         sync()
         t0 = time.perf_counter()
-        result, stages_s, calls, whole = staged(fn, device, SUCCINCT_STAGES)
+        result, stages_s, calls, each = staged(fn, device, SUCCINCT_STAGES)
         sync()
         out[f"{what}_with_timers_s"] = time.perf_counter() - t0
         out[f"{what}_stages_s"] = stages_s
         out[f"{what}_stage_calls"] = calls
-        out[f"{what}_whole_s"] = whole
+        out[f"{what}_whole_s"] = whole_s(each)
         if what == "setup":
             setup = result
         elif what == "verify" and result is not True:

@@ -1,0 +1,113 @@
+"""The NTT-pass kernel (K6): its wrapper and plain version.
+
+K6 ``dif_pass``: one batched radix-m DIF pass of the multi-pass NTT.  The
+table is viewed as ``[A, m, C, L]``; each of the A*C columns (its m elements
+along the middle axis) is optionally multiplied elementwise by ``pre``, runs
+log2(m) Gentleman-Sande stages (``lo = u + v``, ``hi = (u - v) * w``, stage s
+slot j of ``tws`` holding w_m^(j << s)), so that position j ends up holding
+the DFT's output k = bitrev(j), is optionally multiplied by ``scale``, and
+is stored at its own position or, with ``dst``, at the row that ``dst``
+names (the plan's last pass stores in natural order that way).
+Replaces ``tpu_zk/ntt/sixstep.py:112 _batched_dif`` and
+``tpu_zk/fields/mxu_mul.py:405 dft_mxu``, which compute that function on
+``[L, m, B]`` blocks (``B = A * C`` with ``A = 1``, or ``C = 1``).
+
+It is bound by operations: a CIOS product (2 (L/2)^2 wide multiply-adds) per
+butterfly whose twiddle is not 1 (all but m - 1 of a column's m/2 log2 m)
+and per pre-twiddle that is not 1 or scaled element.  What the design does
+about it is in ``csrc/ntt.cu``: one block per few columns held in shared
+memory, every stage there, and no transpose between the plan's passes.
+
+The wrapper runs the plain PyTorch version when its tensors lie on the CPU,
+and for CUDA tensors launches the kernel (built by :mod:`tpu_zk_torch._build`
+at first use) or raises.  It keeps a count of its kernel launches in its
+``launches`` attribute.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from ..fields import arith
+from ..fields.kernels import _check_limbs, _launch_args, _on_cpu, _ptr, _raise_on, _stream
+from ..fields.kernels import add_plain, mont_mul_plain, sub_plain
+
+MAX_LOG_M = 10  # the kernel holds at most 1024 elements (32 KB) of a block in shared memory
+
+
+def dif_pass_plain(ctx: arith.FieldCtx, x: torch.Tensor, tws: torch.Tensor, pre: torch.Tensor | None = None,
+                   scale: torch.Tensor | None = None, dst: torch.Tensor | None = None) -> torch.Tensor:
+    """x [A, m, C, L], tws [log2 m, m/2, L], pre like x or None, scale [L]
+    or None (all Montgomery) -> [A, m, C, L]: the DIF pass over axis 1.
+    With ``dst`` (int64 [A*m*C], a permutation), the element at flat
+    position i lands in row dst[i] of the output."""
+    A, m, C, L = x.shape
+    t = x if pre is None else mont_mul_plain(ctx, x, pre)
+    for s in range(m.bit_length() - 1):
+        H = m >> (s + 1)
+        y = t.reshape(A, m // (2 * H), 2, H, C, L)
+        u, v = y[:, :, 0], y[:, :, 1]
+        lo = add_plain(ctx, u, v)
+        hi = mont_mul_plain(ctx, sub_plain(ctx, u, v), tws[s, :H, None, :])
+        t = torch.stack([lo, hi], dim=2).reshape(A, m, C, L)
+    if scale is not None:
+        t = mont_mul_plain(ctx, t, scale)
+    if dst is not None:
+        out = torch.empty_like(t).view(-1, L)
+        out[dst] = t.reshape(-1, L)
+        t = out.view(A, m, C, L)
+    return t
+
+
+def dif_pass(ctx: arith.FieldCtx, x: torch.Tensor, tws: torch.Tensor, pre: torch.Tensor | None = None,
+             scale: torch.Tensor | None = None, dst: torch.Tensor | None = None) -> torch.Tensor:
+    """K6: see :func:`dif_pass_plain` for the contract."""
+    if x.dim() != 4:
+        raise ValueError(f"dif_pass: x must be [A, m, C, L], got shape {tuple(x.shape)}")
+    A, m, C, L = x.shape
+    log_m = m.bit_length() - 1
+    if m != 1 << log_m:
+        raise ValueError(f"dif_pass: radix {m} is not a power of two")
+    _check_limbs("x", x, ctx.L)
+    _check_limbs("tws", tws, ctx.L)
+    if tws.shape != (log_m, max(m // 2, 1), L):
+        raise ValueError(f"dif_pass: tws must be [{log_m}, {max(m // 2, 1)}, {L}], got {tuple(tws.shape)}")
+    operands = [x, tws]
+    if pre is not None:
+        _check_limbs("pre", pre, ctx.L)
+        if pre.shape != x.shape:
+            raise ValueError(f"dif_pass: pre {tuple(pre.shape)} must match x {tuple(x.shape)}")
+        operands.append(pre)
+    if scale is not None:
+        _check_limbs("scale", scale, ctx.L)
+        if scale.dim() != 1:
+            raise ValueError("dif_pass: scale must be one [L] element")
+        operands.append(scale)
+    if dst is not None:
+        if dst.dtype != torch.int64 or dst.shape != (A * m * C,) or not dst.is_contiguous():
+            raise ValueError(f"dif_pass: dst must be a contiguous int64 [{A * m * C}] permutation")
+        operands.append(dst)
+    if _on_cpu(*operands):
+        return dif_pass_plain(ctx, x, tws, pre, scale, dst)
+    if L != 16 or log_m > MAX_LOG_M:
+        raise ValueError(f"dif_pass: the kernel takes L = 16 and radix up to 2^{MAX_LOG_M}, got L = {L}, m = {m}")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    p32, n0inv = _launch_args(ctx)
+    null = ctypes.c_void_p(None)
+    rc = _build.kernel_library().tzk_ntt_pass(
+        _ptr(x), _ptr(tws) if tws.numel() else null, null if pre is None else _ptr(pre),
+        null if scale is None else _ptr(scale), null if dst is None else _ptr(dst), _ptr(out), ctypes.c_int64(A),
+        ctypes.c_int(log_m),
+        ctypes.c_int64(C), ctypes.c_int(L), p32, n0inv, _stream(),
+    )
+    _raise_on(rc, "dif_pass")
+    dif_pass.launches += 1
+    return out
+
+
+dif_pass.launches = 0

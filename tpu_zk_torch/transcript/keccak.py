@@ -7,6 +7,10 @@ builds itself (:func:`tpu_zk_torch._build.keccak_library`); a failed build
 raises, since the basic-sumcheck transcript absorbs the whole table (512 MiB
 at 2^24 BN254 Fr elements) and a numpy sponge would take far too long.
 
+:func:`keccak256_batch` hashes many equal-length messages and
+:func:`merkle_levels` builds every level of a Merkle tree, both in one call
+to the same native library (threaded over the messages).
+
 :func:`keccak256_plain` is the numpy sponge, kept as the plain reference the
 tests hold the native library against.
 """
@@ -126,3 +130,26 @@ class Keccak256:
 
 def keccak256(data: bytes) -> bytes:
     return Keccak256().update(data).digest()
+
+
+def keccak256_batch(messages: np.ndarray) -> np.ndarray:
+    """Hash N equal-length messages: [N, msg_len] uint8 -> [N, 32] uint8."""
+    n, mlen = messages.shape
+    msgs = np.ascontiguousarray(messages, dtype=np.uint8)
+    out = np.empty((n, 32), np.uint8)
+    if n:
+        _build.keccak_library().keccak256_many(msgs.ctypes.data, n, mlen, out.ctypes.data)
+    return out
+
+
+def merkle_levels(leaves: np.ndarray) -> np.ndarray:
+    """Every level of a binary Merkle tree in one native call.
+
+    leaves: [N, leaf_len] uint8, N a power of two.  Returns [2N-1, 32] uint8:
+    the N leaf digests, then the N/2 nodes above them, ..., then the root.
+    """
+    n, leaf_len = leaves.shape
+    msgs = np.ascontiguousarray(leaves, dtype=np.uint8)
+    out = np.empty((2 * n - 1, 32), np.uint8)
+    _build.keccak_library().merkle_build(msgs.ctypes.data, n, leaf_len, out.ctypes.data)
+    return out
