@@ -38,22 +38,28 @@ Phases, in order; any failure raises and the exit code is nonzero:
    version's;
 11. a GKR proof from host ints with no device argument: it must reach the
    card (K1, K2 and K3 launch);
-12. K4a (MSM bucket accumulation) and K4b (weighted bucket totals) against
-   their plain versions as group elements, over BN254 and BLS12-381 G1, at
-   2^12 points with duplicates, P and -P, identity points, the scalars 0, 1,
-   r - 1 and 2^256 - 1, a ragged tail, fewer points than lanes and all-zero
-   scalars; ``msm_pippenger`` against the double-and-add MSM and host ints;
-13. succinct-GKR parity: the proof JSON from the card (bucket method forced)
-   equals the one from the CPU on a BLS12-381 two-layer circuit and a BN254
-   depth-6 mixed circuit; tampered proofs and a wrong opening point fail;
+12. K4a (MSM unit sums, every pass) and K4b (segment-weighted bucket
+   totals) against their plain versions as group elements and against a
+   second launch limb for limb, over BN254 and BLS12-381 G1, at 2^12 points
+   with duplicates, P and -P, identity points, the scalars 0, 1, r - 1 and
+   2^256 - 1, at c = 10 (the rule's), 8 (units of 4) and 16; scalars in
+   {0, 1} at c = 2, all-zero, all-equal and below-2^16 scalars;
+   ``msm_pippenger`` against the double-and-add MSM and host ints at 2^12,
+   64, 3, 2, 1 and 0 points;
+13. succinct-GKR parity: the proof JSON from the card equals the one from
+   the CPU on a BLS12-381 two-layer circuit and a BN254 depth-6 mixed
+   circuit; tampered proofs and a wrong opening point fail;
 14. KZG alone over BN254 at 20 variables (setup, commit, open, verify apart),
    then succinct GKR at depth 20;
-15. MSM alone over BN254 at 2^20 and 2^24 points: the result must be
-   (sum s_i a_i) G; at 2^24 every bucket of K4a's launch and every lane
-   total of K4b's is held against the plain version;
+15. MSM alone over BN254 at 2^20 and 2^24 points, random, all-equal and
+   below-2^16 scalars, first call and warm and stage by stage: each result
+   must be (sum s_i a_i) G; at 2^24 every unit of every K4a pass and every
+   segment total of K4b is held against the plain versions, and c (13-16),
+   K4a's unit R (16-128) and K4b's segment m (8-64) are swept;
 16. the succinct-GKR main path at depth 24: ``prove_succinct``, the proof to
    JSON and back, ``verify_succinct``, first call and warm, then under the
-   stage timers; K1-K4 must launch; tampered proofs fail;
+   stage timers; K1-K4 must launch and no double-and-add MSM run; tampered
+   proofs fail;
 17. K6 (NTT pass) against its plain version, bit-exact, both Fr fields, at
    every radix the plans use and small ones, with and without pre-twiddle,
    scale and natural-order store, ragged column counts;
@@ -419,6 +425,7 @@ def gkr_main_path(device, rng, depth: int) -> dict:
 HBM_BYTES_PER_S = 3.35e12  # the H100's published device-memory rate
 K4_CHECK_LOG_N = 12
 BLS_TIMED_LOG_N = 16  # K4 over BLS12-381 is timed at 2^16 points
+PLAIN_CHUNK_UNITS = 1 << 17  # K4a's plain version over a 2^24 launch runs this many units at a time
 KZG_VARS = 20  # BASELINE config 4's size; also the second succinct-GKR depth
 SUCCINCT_DEPTH = 24  # this slice's full width: 2^24 inputs committed, 2^24 - 1 gates (BASELINE config 5)
 MSM_LOG_NS = (20, 24)
@@ -467,11 +474,14 @@ def mont_mul_wide_mads(ctx) -> int:
     return 2 * (ctx.L // 2) ** 2
 
 
-# Montgomery products that one complete addition needs.  Algorithm 7 has 12
-# products of two variables and two by the constant b3 = 3b (9 on BN254, 12 on
-# BLS12-381), which a few modular additions can do instead: the kernels issue
-# them as products, the bound leaves them out.
+# Montgomery products that one complete addition needs: Algorithm 7 has 12
+# products of two variables; its two by the constant b3 = 3b (9 on BN254, 12 on
+# BLS12-381) are four modular additions each in csrc/ec.cuh.
 EC_ADD_PRODUCTS = 12
+C_SWEEP = (13, 14, 15, 16)  # window bits timed at 2^24 (the rule picks 16)
+UNIT_SWEEP = (16, 32, 64, 128)  # entries a K4a thread sums (R), timed at 2^24
+SEGMENT_SWEEP = (8, 16, 32, 64)  # buckets a K4b thread reduces (m), timed at 2^24
+SCALAR_KINDS = ("random", "all equal", "below 2^16")
 
 
 def rand_scalar_limbs(fr, n: int, rng, device) -> torch.Tensor:
@@ -490,30 +500,91 @@ def unequal(ctx, P, Q) -> int:
     return int((~ec_equal(ctx, P, Q)).sum())
 
 
-def k4_against_plain(dc, points, scalars, lanes: int, what: str) -> None:
-    """K4a then K4b on (points, scalars) against their plain versions."""
+def skewed_scalars(fr, n: int, kind: str, rng, device) -> torch.Tensor:
+    """Plain scalars [n, L] of one of SCALAR_KINDS."""
+    s = rand_scalar_limbs(fr, n, rng, device)
+    if kind == "all equal":
+        s[:] = s[0].clone()
+    elif kind == "below 2^16":
+        s[:, 1:] = 0
+    return s
+
+
+def k4_passes(dc, points, scalars, c: int, unit: int, what: str, rate: float | None = None) -> dict:
+    """Every K4a pass of one MSM's bucket sums, then K4b, each against its
+    plain version as group elements and against a second launch limb for
+    limb.  K4a's plain version runs PLAIN_CHUNK_UNITS units at a time (one
+    call cannot hold a 2^24 launch's slots).  Returns the kernels' times
+    (CUDA events) and their plain versions' (host clock), the adds each
+    needed and, with ``rate``, the bounds."""
     from tpu_zk_torch.curves import kernels
     from tpu_zk_torch.curves import msm_pippenger as mp
 
     ctx = dc.ctx
-    codes = mp._codes_by_window(scalars)
-    words = kernels.msm_buckets(ctx, dc.b3, points, codes, lanes)
-    torch.cuda.synchronize()
-    plain = kernels.msm_buckets_plain(ctx, dc.b3, points, codes, lanes)
-    bad = unequal(ctx, kernels.unpack_buckets(words), plain)
-    if bad:
-        raise AssertionError(f"K4a {what}: {bad} of {plain[0].numel() // ctx.L} buckets differ from the plain version's")
-    totals = kernels.msm_bucket_reduce(ctx, dc.b3, words)
-    torch.cuda.synchronize()
-    bad = unequal(ctx, totals, kernels.msm_bucket_reduce_plain(ctx, dc.b3, plain))
-    if bad:
-        raise AssertionError(f"K4b {what}: {bad} lane totals differ from the plain version's")
+    digits = mp.signed_digits(scalars, c)
+    W, B = digits.shape[0], 1 << (c - 1)
+    entries, counts = mp._bucket_entries(digits, c)
+    del digits
+    live, nonempty = int(counts.sum()), int((counts > 0).sum())
+    out = {"c": c, "windows": W, "live_entries": live, "passes": [], "k4a_ms": 0.0, "k4a_plain_ms": 0.0}
+    P, E, cnt = points, entries, counts
+    while True:
+        units, cnt = mp._unit_table(cnt, unit)
+        rows = kernels.msm_buckets(ctx, dc.b3, P, E, units)
+        again = kernels.msm_buckets(ctx, dc.b3, P, E, units)
+        if not torch.equal(rows, again):
+            raise AssertionError(f"K4a {what}: two launches on the same input differ")
+        del again
+        bad, plain_s = 0, 0.0
+        for lo in range(0, units.shape[0], PLAIN_CHUNK_UNITS):
+            part = units[lo : lo + PLAIN_CHUNK_UNITS]
+            plain, dt = sync_time(lambda: kernels.msm_buckets_plain(ctx, dc.b3, P, E, part))
+            plain_s += dt
+            bad += unequal(ctx, kernels.rows_to_points(rows[lo : lo + PLAIN_CHUNK_UNITS]), kernels.rows_to_points(plain))
+            del plain
+        if bad:
+            raise AssertionError(f"K4a {what}: {bad} of {units.shape[0]} unit sums differ from the plain version's")
+        ms = event_ms(lambda: kernels.msm_buckets(ctx, dc.b3, P, E, units), 2)
+        out["passes"].append({"units": units.shape[0], "ms": ms, "plain_ms": plain_s * 1e3})
+        out["k4a_ms"] += ms
+        out["k4a_plain_ms"] += plain_s * 1e3
+        if rows.shape[0] == W * B:
+            break
+        P, E = kernels.rows_to_points(rows), None
+    buckets = rows.view(W, B, 3, ctx.L)
+    m = min(mp.SEGMENT, B)
+    for seg in (m, 5):
+        got = kernels.msm_bucket_reduce(ctx, dc.b3, buckets, seg)
+        if not torch.equal(got, kernels.msm_bucket_reduce(ctx, dc.b3, buckets, seg)):
+            raise AssertionError(f"K4b {what}: two launches on the same input differ")
+        want, dt = sync_time(lambda: kernels.msm_bucket_reduce_plain(ctx, dc.b3, buckets, seg))
+        bad = unequal(ctx, kernels.rows_to_points(got), kernels.rows_to_points(want))
+        if bad:
+            raise AssertionError(f"K4b {what}, segments of {seg}: {bad} segment totals differ from the plain version's")
+        if seg == m:
+            out.update(k4b_ms=event_ms(lambda: kernels.msm_bucket_reduce(ctx, dc.b3, buckets, m), 5),
+                       k4b_plain_ms=dt * 1e3, segments=got.shape[1])
+    # adds the function needs: K4a reduces the live entries to one point a nonempty bucket; K4b weighs a
+    # window's B buckets, 2 adds a bucket by running sums, and carries its S segments' offsets, 2 adds a
+    # segment by a second running sum over their sums (the kernel's double-and-add offsets do more)
+    S = -(-B // m)
+    out.update(k4a_adds=live - nonempty, k4b_adds=W * 2 * (B + S))
+    if rate is not None:
+        add_mads = EC_ADD_PRODUCTS * mont_mul_wide_mads(ctx)
+        point_bytes = 3 * ctx.L * 4
+        units_total = sum(p["units"] for p in out["passes"])
+        # K4a reads each entry and its point and each later pass's partials once, writes each unit's sum once
+        bytes_a = live * (4 + point_bytes) + (units_total - out["passes"][0]["units"]) * point_bytes \
+            + units_total * point_bytes
+        out["k4a_bound"] = bound_ms(bytes_a, out["k4a_adds"] * add_mads, rate)
+        out["k4b_bound"] = bound_ms((W * B + W * S) * point_bytes, out["k4b_adds"] * add_mads, rate)
+    return out
 
 
 def check_k4(device, rng) -> dict:
     """Phase 12.  Returns K4a's and K4b's times beside their plain versions'
-    at 2^12 BN254 points."""
-    from tpu_zk_torch.curves import ec_device, fixed_base, kernels
+    at 2^12 BN254 points and random scalars."""
+    from tpu_zk_torch.curves import ec_device, fixed_base
     from tpu_zk_torch.curves import msm_pippenger as mp
     from tpu_zk_torch.curves.ec_device import DeviceCurve
 
@@ -538,50 +609,48 @@ def check_k4(device, rng) -> dict:
         s[6:9] = fr.array([0, 1, r - 1], mont=False, device=device)
         s[9] = 0xFFFF
         s_ints = [sum(int(v) << (16 * i) for i, v in enumerate(row)) for row in s[:64].cpu().tolist()]
+        c = mp.window_bits(n)
+        zero_one = torch.zeros_like(s)
+        zero_one[::3, 0] = 1
+        cases = [(s, c, mp.UNIT, f"edge points and scalars, c {c}"), (s, 8, 4, "edge points and scalars, c 8, units of 4"),
+                 (s, 16, mp.UNIT, "edge points and scalars, c 16"), (zero_one, 2, mp.UNIT, "scalars 0 and 1, c 2"),
+                 (torch.zeros_like(s), c, mp.UNIT, "all-zero scalars")]
+        cases += [(skewed_scalars(fr, n, kind, rng, device), c, mp.UNIT, f"{kind} scalars, c {c}")
+                  for kind in SCALAR_KINDS[1:]]
+        for scalars, cc, unit, what in cases:
+            run = k4_passes(dc, points, scalars, cc, unit, f"{name} 2^{K4_CHECK_LOG_N} points, {what}")
+            if name == "bn254" and what.startswith("edge") and cc == c:
+                times["K4a"] = {"ms": run["k4a_ms"], "plain_ms": run["k4a_plain_ms"]}
+                times["K4b"] = {"ms": run["k4b_ms"], "plain_ms": run["k4b_plain_ms"]}
 
-        k4_against_plain(dc, points, s, 96, f"{name} 2^{K4_CHECK_LOG_N} points, 96 lanes (ragged tail)")
-        k4_against_plain(dc, tuple(c[:20].contiguous() for c in points), s[:20].contiguous(), 32,
-                         f"{name} 20 points, 32 lanes")
-        k4_against_plain(dc, points, torch.zeros_like(s), 64, f"{name} all-zero scalars")
-        lanes = kernels.default_lanes(ctx, n, 53, device)
-        k4_against_plain(dc, points, s, lanes, f"{name} 2^{K4_CHECK_LOG_N} points, {lanes} lanes")
-
-        whole = dc.point_to_host(mp.msm_pippenger(ctx, dc.b3, (points, s), threshold=0))
+        whole = dc.point_to_host(mp.msm_pippenger(ctx, dc.b3, (points, s)))
         slow = dc.point_to_host(ec_device.msm(ctx, dc.b3, points, ec_device.scalar_bits(fr, s)))
         if whole is None or whole != slow:
             raise AssertionError(f"msm_pippenger {name}: differs from the double-and-add MSM")
-        first = (tuple(c[:64].contiguous() for c in points), s[:64].contiguous())
-        got = dc.point_to_host(mp.msm_pippenger(ctx, dc.b3, first, threshold=0))
-        want = hc.g1_affine(hc.g1_mul(hc.g1_generator(), sum(a * b for a, b in zip(k_ints, s_ints)) % r))
-        if got != want:
-            raise AssertionError(f"msm_pippenger {name}: differs from host ints on 64 points")
-        if dc.point_to_host(mp.msm_pippenger(ctx, dc.b3, (points, torch.zeros_like(s)), threshold=0)) is not None:
+        for few in (64, 3, 2, 1, 0):
+            first = (tuple(t[:few].contiguous() for t in points), s[:few].contiguous())
+            got = dc.point_to_host(mp.msm_pippenger(ctx, dc.b3, first))
+            want = hc.g1_affine(hc.g1_mul(hc.g1_generator(), sum(a * b for a, b in zip(k_ints[:few], s_ints[:few])) % r))
+            if got != want:
+                raise AssertionError(f"msm_pippenger {name}: differs from host ints on {few} points")
+        if dc.point_to_host(mp.msm_pippenger(ctx, dc.b3, (points, torch.zeros_like(s)))) is not None:
             raise AssertionError(f"msm_pippenger {name}: all-zero scalars do not give the identity")
-        log(f"K4 {name}: K4a and K4b equal their plain versions as group elements (2^{K4_CHECK_LOG_N} points at 96 and "
-            f"{lanes} lanes, 20 points at 32 lanes, all-zero scalars); msm_pippenger == double-and-add == host ints")
-
+        log(f"K4 {name}: every K4a pass and K4b equal their plain versions as group elements and a second launch "
+            f"limb for limb (2^{K4_CHECK_LOG_N} points: {', '.join(w for *_, w in cases)}); msm_pippenger == "
+            f"double-and-add == host ints (2^{K4_CHECK_LOG_N}, 64, 3, 2, 1 and 0 points)")
         if name == "bn254":
-            codes = mp._codes_by_window(s)
-            words = kernels.msm_buckets(ctx, dc.b3, points, codes, lanes)
-            plain = kernels.msm_buckets_plain(ctx, dc.b3, points, codes, lanes)
-            times["K4a"] = {
-                "ms": event_ms(lambda: kernels.msm_buckets(ctx, dc.b3, points, codes, lanes), 20),
-                "plain_ms": event_ms(lambda: kernels.msm_buckets_plain(ctx, dc.b3, points, codes, lanes), 1)}
-            times["K4b"] = {
-                "ms": event_ms(lambda: kernels.msm_bucket_reduce(ctx, dc.b3, words), 20),
-                "plain_ms": event_ms(lambda: kernels.msm_bucket_reduce_plain(ctx, dc.b3, plain), 1)}
             for what, m in times.items():
-                log(f"{what} bn254 2^{K4_CHECK_LOG_N} points, {lanes} lanes: {m['ms']:.4f} ms (plain {m['plain_ms']:.4f} ms)")
+                log(f"{what} bn254 2^{K4_CHECK_LOG_N} points, c {c}: {m['ms']:.4f} ms (plain {m['plain_ms']:.4f} ms)")
         else:  # the 12-word field's kernels at a size where they fill the card
             big = 1 << BLS_TIMED_LOG_N
             k = rand_scalar_limbs(fr, big, rng, device)
             points = fixed_base.fixed_base_msm(ctx, dc.b3, table, fixed_base.digits4(k))
-            codes = mp._codes_by_window(rand_scalar_limbs(fr, big, rng, device))
-            lanes = kernels.default_lanes(ctx, big, 53, device)
-            words = kernels.msm_buckets(ctx, dc.b3, points, codes, lanes)
-            log(f"K4a {name} 2^{BLS_TIMED_LOG_N} points, {lanes} lanes: "
-                f"{event_ms(lambda: kernels.msm_buckets(ctx, dc.b3, points, codes, lanes), 10):.4f} ms; K4b: "
-                f"{event_ms(lambda: kernels.msm_bucket_reduce(ctx, dc.b3, words), 10):.4f} ms")
+            scalars = rand_scalar_limbs(fr, big, rng, device)
+            _, t_msm = sync_time(lambda: mp.msm_pippenger(ctx, dc.b3, (points, scalars)))
+            _, t_msm = sync_time(lambda: mp.msm_pippenger(ctx, dc.b3, (points, scalars)))
+            run = k4_passes(dc, points, scalars, mp.window_bits(big), mp.UNIT, f"{name} 2^{BLS_TIMED_LOG_N} points")
+            log(f"K4 {name} 2^{BLS_TIMED_LOG_N} points, c {run['c']}: K4a {run['k4a_ms']:.4f} ms over "
+                f"{len(run['passes'])} passes, K4b {run['k4b_ms']:.4f} ms; msm_pippenger warm {t_msm * 1e3:.2f} ms")
     return times
 
 
@@ -606,7 +675,6 @@ def check_default_device(rng) -> None:
 def check_succinct_parity(device, rng) -> None:
     """Phase 13."""
     from tpu_zk_torch.circuit.layered import Circuit, Gate, Layer
-    from tpu_zk_torch.curves import msm_pippenger as mp
     from tpu_zk_torch.curves.params import CURVES
     from tpu_zk_torch.fields.arith import field_ctx
     from tpu_zk_torch.gkr import sparse
@@ -622,40 +690,36 @@ def check_succinct_parity(device, rng) -> None:
          [int.from_bytes(rng.bytes(32), "little") % bn.p for _ in range(64)],
          [int.from_bytes(rng.bytes(32), "little") % bn.p for _ in range(6)]),
     ]
-    saved, mp.BUCKET_THRESHOLD = mp.BUCKET_THRESHOLD, 2  # K4 from 2 points up
-    try:
-        for what, curve, circuit, vals, taus in cases:
-            field = circuit.ctx.name
-            reset_launches()
-            setup = TrustedSetup.initialize_setup(curve, taus)  # no device argument: the card
-            proof = sparse.prove_succinct(circuit, vals, setup)
-            launches = read_launches()
-            if not all(launches[k] > 0 for k in ("msm_buckets", "msm_bucket_reduce", "mont_mul", "fold", "addsub")):
-                raise AssertionError(f"succinct parity {what}: the card side skipped a kernel: {launches}")
-            card_json = succinct_proof_to_json(proof, field)
-            if not sparse.verify_succinct(circuit, succinct_proof_from_json(card_json), setup):
-                raise AssertionError(f"succinct parity {what}: the card's proof does not verify")
-            cpu_setup = TrustedSetup.initialize_setup(curve, taus, device="cpu")
-            cpu_proof = sparse.prove_succinct(circuit, vals, cpu_setup)
-            if not sparse.verify_succinct(circuit, cpu_proof, cpu_setup):
-                raise AssertionError(f"succinct parity {what}: the CPU's proof does not verify")
-            if succinct_proof_to_json(cpu_proof, field) != card_json:
-                raise AssertionError(f"succinct parity {what}: proof JSON from the card differs from the CPU's")
+    for what, curve, circuit, vals, taus in cases:
+        field = circuit.ctx.name
+        reset_launches()
+        setup = TrustedSetup.initialize_setup(curve, taus)  # no device argument: the card
+        proof = sparse.prove_succinct(circuit, vals, setup)
+        launches = read_launches()
+        if not all(launches[k] > 0 for k in ("msm_buckets", "msm_bucket_reduce", "mont_mul", "fold", "addsub")):
+            raise AssertionError(f"succinct parity {what}: the card side skipped a kernel: {launches}")
+        card_json = succinct_proof_to_json(proof, field)
+        if not sparse.verify_succinct(circuit, succinct_proof_from_json(card_json), setup):
+            raise AssertionError(f"succinct parity {what}: the card's proof does not verify")
+        cpu_setup = TrustedSetup.initialize_setup(curve, taus, device="cpu")
+        cpu_proof = sparse.prove_succinct(circuit, vals, cpu_setup)
+        if not sparse.verify_succinct(circuit, cpu_proof, cpu_setup):
+            raise AssertionError(f"succinct parity {what}: the CPU's proof does not verify")
+        if succinct_proof_to_json(cpu_proof, field) != card_json:
+            raise AssertionError(f"succinct parity {what}: proof JSON from the card differs from the CPU's")
 
-            n = len(taus)
-            rb = proof.sumcheck_proofs[-1].random_challenges[:n]
-            c, opening = proof.input_polynomial_commitment, proof.input_rb_proof
-            if not kzg.verify(setup, c, rb, opening):
-                raise AssertionError(f"succinct parity {what}: the rb opening does not verify")
-            wrong_value = kzg.MultilinearKZGProof(opening.evaluation + 1, list(opening.proofs))
-            wrong_point = kzg.MultilinearKZGProof(opening.evaluation, [CURVES[curve]["g1"]] + list(opening.proofs[1:]))
-            if (kzg.verify(setup, c, rb, wrong_value) or kzg.verify(setup, c, rb, wrong_point)
-                    or kzg.verify(setup, c, [rb[0] + 1] + rb[1:], opening)):
-                raise AssertionError(f"succinct parity {what}: the pairing check accepts a tampered opening")
-            log(f"succinct parity {what}: CUDA proof JSON == CPU proof JSON ({len(card_json)} bytes), both verify; "
-                f"tampered evaluation, quotient point and opening point rejected; launches {launches}")
-    finally:
-        mp.BUCKET_THRESHOLD = saved
+        n = len(taus)
+        rb = proof.sumcheck_proofs[-1].random_challenges[:n]
+        c, opening = proof.input_polynomial_commitment, proof.input_rb_proof
+        if not kzg.verify(setup, c, rb, opening):
+            raise AssertionError(f"succinct parity {what}: the rb opening does not verify")
+        wrong_value = kzg.MultilinearKZGProof(opening.evaluation + 1, list(opening.proofs))
+        wrong_point = kzg.MultilinearKZGProof(opening.evaluation, [CURVES[curve]["g1"]] + list(opening.proofs[1:]))
+        if (kzg.verify(setup, c, rb, wrong_value) or kzg.verify(setup, c, rb, wrong_point)
+                or kzg.verify(setup, c, [rb[0] + 1] + rb[1:], opening)):
+            raise AssertionError(f"succinct parity {what}: the pairing check accepts a tampered opening")
+        log(f"succinct parity {what}: CUDA proof JSON == CPU proof JSON ({len(card_json)} bytes), both verify; "
+            f"tampered evaluation, quotient point and opening point rejected; launches {launches}")
 
 
 def timed_setup(device, n_vars: int, seed: int):
@@ -715,9 +779,32 @@ def kzg_alone(device, rng, setup) -> dict:
     return out
 
 
+def msm_stages(dc, points, scalars, c: int, unit: int | None = None, segment: int | None = None) -> dict:
+    """One msm_pippenger, stage by stage, synchronized at each boundary:
+    seconds of digits, sort, bucket sums (unit tables and K4a passes of
+    ``unit`` entries, default UNIT), K4b (segments of ``segment``, default
+    SEGMENT), window sums (K4a passes) and the host combine; the result
+    point."""
+    from tpu_zk_torch.curves import msm_pippenger as mp
+
+    unit, segment = unit or mp.UNIT, segment or mp.SEGMENT
+    ctx, b3 = dc.ctx, dc.b3
+    out = {}
+    digits, out["digits_s"] = sync_time(lambda: mp.signed_digits(scalars, c))
+    W, B = digits.shape[0], 1 << (c - 1)
+    (entries, counts), out["sort_s"] = sync_time(lambda: mp._bucket_entries(digits, c))
+    del digits
+    buckets, out["bucket_sums_s"] = sync_time(lambda: mp._sum_groups(ctx, b3, points, entries, counts, unit))
+    del entries
+    segments, out["k4b_s"] = sync_time(
+        lambda: mp.msm_bucket_reduce(ctx, b3, buckets.view(W, B, 3, ctx.L), min(segment, B)))
+    windows, out["window_sums_s"] = sync_time(lambda: mp._window_sums(ctx, b3, segments))
+    out["point"], out["combine_s"] = sync_time(lambda: mp._combine_windows(ctx, b3, windows, c))
+    return out
+
+
 def msm_alone(device, rng, setup, taus, rate: float) -> dict:
     """Phase 15.  Returns the runs and K4a's and K4b's rows at 2^24."""
-    from tpu_zk_torch.curves import kernels
     from tpu_zk_torch.curves import msm_pippenger as mp
     from tpu_zk_torch.fields import arith
     from tpu_zk_torch.kzg.trusted_setup import compute_lagrange_basis_device
@@ -725,62 +812,67 @@ def msm_alone(device, rng, setup, taus, rate: float) -> dict:
     dc = setup.curve
     ctx, fr, hc = dc.ctx, dc.fr, dc.host
     multipliers = compute_lagrange_basis_device(fr, taus, device=device)  # powers[i] = multipliers[i] G
-    out = {"runs": [], "kernels": {}}
+    out = {"runs": [], "kernels": {}, "c_sweep": [], "unit_sweep": [], "segment_sweep": []}
+
+    def expected(n, s):
+        k = fr.to_ints(arith.sum_mod(fr, arith.mont_mul(fr, multipliers[:n], arith.to_mont(fr, s))))
+        return hc.g1_affine(hc.g1_mul(hc.g1_generator(), k))
+
     for log_n in MSM_LOG_NS:
         n = 1 << log_n
-        points = tuple(c[:n] for c in setup.g1_powers_of_tau)
-        s = rand_scalar_limbs(fr, n, rng, device)
-        reset_launches()
-        got, t_first = sync_time(lambda: mp.msm_pippenger(ctx, dc.b3, (points, s)))
-        launches = read_launches()
-        _, t_warm = sync_time(lambda: mp.msm_pippenger(ctx, dc.b3, (points, s)))
-        k = fr.to_ints(arith.sum_mod(fr, arith.mont_mul(fr, multipliers[:n], arith.to_mont(fr, s))))
-        if dc.point_to_host(got) != hc.g1_affine(hc.g1_mul(hc.g1_generator(), k)):
-            raise AssertionError(f"MSM 2^{log_n}: the result is not (sum s_i a_i) G")
-        if launches["msm_buckets"] != 1 or launches["msm_bucket_reduce"] != 1:
-            raise AssertionError(f"MSM 2^{log_n}: expected one K4a and one K4b launch, got {launches}")
-
-        codes, t_codes = sync_time(lambda: mp._codes_by_window(s))
-        W = codes.shape[0]
-        lanes = kernels.default_lanes(ctx, n, W, device)
-        words = kernels.msm_buckets(ctx, dc.b3, points, codes, lanes)
-        ms_a = event_ms(lambda: kernels.msm_buckets(ctx, dc.b3, points, codes, lanes), 2)
-        ms_b = event_ms(lambda: kernels.msm_bucket_reduce(ctx, dc.b3, words), 5)
-        run = {"log_n": log_n, "first_s": t_first, "warm_s": t_warm, "points_per_s_warm": n / t_warm,
-               "digits_s": t_codes, "k4a_ms": ms_a, "k4b_ms": ms_b, "lanes": lanes, "launches": launches}
-        out["runs"].append(run)
-        log(f"MSM alone bn254 2^{log_n}: " + json.dumps(run))
-
-        if log_n == max(MSM_LOG_NS):
-            # K4a against its plain version, every bucket of this launch: the plain version cannot hold
-            # 16 W n slots at once, so it runs lane by lane (a lane's points are what one thread walked)
-            bad, plain_s = 0, 0.0
-            for lane in range(lanes):
-                sub_points = tuple(c[lane::lanes].contiguous() for c in points)
-                sub_codes = codes[:, lane::lanes].contiguous()
-                plain, dt = sync_time(lambda: kernels.msm_buckets_plain(ctx, dc.b3, sub_points, sub_codes, 1))
-                plain_s += dt
-                bad += unequal(ctx, kernels.unpack_buckets(words[:, lane]), tuple(c[:, 0] for c in plain))
-                del plain, sub_points, sub_codes
-            totals = kernels.msm_bucket_reduce(ctx, dc.b3, words)
-            buckets = kernels.unpack_buckets(words)
-            want, plain_b_s = sync_time(lambda: kernels.msm_bucket_reduce_plain(ctx, dc.b3, buckets))
-            bad_b = unequal(ctx, totals, want)
-            if bad or bad_b:
-                raise AssertionError(f"MSM 2^{log_n}: K4a differs on {bad} buckets, K4b on {bad_b} lanes")
-            log(f"MSM alone 2^{log_n}: K4a equals its plain version on all {W} x {lanes} x 16 buckets "
-                f"(plain, lane by lane: {plain_s:.1f} s), K4b on all {W} x {lanes} lanes (plain {plain_b_s * 1e3:.1f} ms)")
-            live = int(((codes & 64) == 0).sum())
-            add_mads = EC_ADD_PRODUCTS * mont_mul_wide_mads(ctx)
-            bytes_a = 3 * n * ctx.L * 4 + codes.numel() + words.numel() * 4
-            bytes_b = words.numel() * 4 + W * lanes * 3 * ctx.L * 4
-            out["kernels"]["K4a"] = {"ms": ms_a, "shape": f"{n} points, {W} windows, {lanes} lanes",
-                                     "bound": bound_ms(bytes_a, live * add_mads, rate), "max_abs_err": bad,
-                                     "plain_ms": plain_s * 1e3}
-            out["kernels"]["K4b"] = {"ms": ms_b, "shape": f"{W} x {lanes} lanes of 16 buckets",
-                                     "bound": bound_ms(bytes_b, W * lanes * 32 * add_mads, rate), "max_abs_err": bad_b,
-                                     "plain_ms": plain_b_s * 1e3}
-        del words, codes, s
+        points = tuple(t[:n] for t in setup.g1_powers_of_tau)
+        c = mp.window_bits(n)
+        for kind in SCALAR_KINDS:
+            s = skewed_scalars(fr, n, kind, rng, device)
+            reset_launches()
+            got, t_first = sync_time(lambda: mp.msm_pippenger(ctx, dc.b3, (points, s)))
+            launches = read_launches()
+            _, t_warm = sync_time(lambda: mp.msm_pippenger(ctx, dc.b3, (points, s)))
+            want = expected(n, s)
+            if dc.point_to_host(got) != want:
+                raise AssertionError(f"MSM 2^{log_n}, {kind} scalars: the result is not (sum s_i a_i) G")
+            if launches["msm_buckets"] < 2 or launches["msm_bucket_reduce"] != 1:
+                raise AssertionError(f"MSM 2^{log_n}: expected K4a passes and one K4b launch, got {launches}")
+            stages = msm_stages(dc, points, s, c)
+            if dc.point_to_host(stages.pop("point")) != want:
+                raise AssertionError(f"MSM 2^{log_n}, {kind} scalars: the staged run differs")
+            run = {"log_n": log_n, "scalars": kind, "c": c, "first_s": t_first, "warm_s": t_warm,
+                   "points_per_s_warm": n / t_warm, "launches": launches, "stages_s": stages}
+            out["runs"].append(run)
+            log(f"MSM alone bn254 2^{log_n}: " + json.dumps(run))
+            if kind == "random":
+                # every bucket of the launch, each pass, and K4b against the plain versions
+                k4 = k4_passes(dc, points, s, c, mp.UNIT, f"MSM 2^{log_n}", rate)
+                log(f"MSM alone 2^{log_n}: every K4a pass ({[p['units'] for p in k4['passes']]} units) and K4b "
+                    f"({k4['segments']} segments a window) equal their plain versions: " + json.dumps(k4))
+                out["k4"] = {**out.get("k4", {}), log_n: k4}
+            if log_n == max(MSM_LOG_NS) and kind == "random":
+                shape = f"{n} points, c {c}: {len(k4['passes'])} K4a passes over {k4['live_entries']} entries"
+                out["kernels"]["K4a"] = {"ms": k4["k4a_ms"], "plain_ms": k4["k4a_plain_ms"], "bound": k4["k4a_bound"],
+                                         "max_abs_err": 0, "shape": shape, "passes": k4["passes"]}
+                out["kernels"]["K4b"] = {"ms": k4["k4b_ms"], "plain_ms": k4["k4b_plain_ms"], "bound": k4["k4b_bound"],
+                                         "max_abs_err": 0,
+                                         "shape": f"{k4['windows']} windows x {k4['segments']} segments of {mp.SEGMENT}"}
+                for key, row in (("k4a", "K4a"), ("k4b", "K4b")):  # the same at the smaller MSM
+                    out["kernels"][row].update({
+                        f"at_2^{m}": {"ms": other[f"{key}_ms"], "plain_ms": other[f"{key}_plain_ms"],
+                                      "bound_ms": other[f"{key}_bound"][0]}
+                        for m, other in out["k4"].items() if m != log_n})
+                for key, sweep, stages in (("unit", UNIT_SWEEP, ("bucket_sums_s",)),
+                                           ("segment", SEGMENT_SWEEP, ("k4b_s", "window_sums_s"))):
+                    for size in sweep:  # the better of two runs, each checked
+                        runs = [msm_stages(dc, points, s, c, **{key: size}) for _ in range(2)]
+                        if any(dc.point_to_host(r.pop("point")) != want for r in runs):
+                            raise AssertionError(f"MSM 2^{log_n} with {key} {size}: the result is not (sum s_i a_i) G")
+                        out[f"{key}_sweep"].append({key: size, **{k: min(r[k] for r in runs) for k in stages}})
+                        log(f"MSM 2^{log_n} {key} sweep: " + json.dumps(out[f"{key}_sweep"][-1]))
+                for cc in C_SWEEP:
+                    _, t = sync_time(lambda: mp.msm_pippenger(ctx, dc.b3, (points, s), c=cc))
+                    swept = msm_stages(dc, points, s, cc)
+                    swept.pop("point")
+                    out["c_sweep"].append({"c": cc, "warm_s": t, "stages_s": swept})
+                    log(f"MSM 2^{log_n} c sweep: " + json.dumps(out["c_sweep"][-1]))
+            del s
     return out
 
 
@@ -789,6 +881,7 @@ def succinct_main_path(device, rng, setup, setup_times: dict) -> dict:
     tree_sum_circuit(setup.num_vars) on random inputs, first call and warm,
     then once under the stage timers."""
     from tpu_zk_torch.circuit.layered import tree_sum_circuit
+    from tpu_zk_torch.curves import ec_device
     from tpu_zk_torch.fields import arith
     from tpu_zk_torch.fields.arith import field_ctx
     from tpu_zk_torch.gkr import breakdown, sparse
@@ -803,7 +896,13 @@ def succinct_main_path(device, rng, setup, setup_times: dict) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    proof, t_prove = sync_time(lambda: sparse.prove_succinct(circuit, table, setup))
+    double_and_add = []
+    saved_msm = ec_device.msm
+    ec_device.msm = lambda *a, **k: double_and_add.append(1) or saved_msm(*a, **k)
+    try:
+        proof, t_prove = sync_time(lambda: sparse.prove_succinct(circuit, table, setup))
+    finally:
+        ec_device.msm = saved_msm
     proof_json, t_json = sync_time(lambda: succinct_proof_to_json(proof, ctx.name))
     received = succinct_proof_from_json(proof_json)
     ok, t_verify = sync_time(lambda: sparse.verify_succinct(circuit, received, setup))
@@ -819,6 +918,8 @@ def succinct_main_path(device, rng, setup, setup_times: dict) -> dict:
     for name in SUCCINCT_KERNELS:
         if launches[name] == 0:
             raise AssertionError(f"succinct GKR main path at depth {depth} never launched kernel {name}")
+    if double_and_add:
+        raise AssertionError(f"succinct GKR depth {depth}: {len(double_and_add)} double-and-add MSMs ran")
     for what, change in (("wb evaluation", lambda q: q.wb_evaluations.__setitem__(0, q.wb_evaluations[0] + 1)),
                          ("KZG evaluation", lambda q: setattr(q.input_rb_proof, "evaluation", q.input_rb_proof.evaluation + 1)),
                          ("quotient point", lambda q: q.input_rc_proof.proofs.__setitem__(0, q.input_polynomial_commitment))):
@@ -908,9 +1009,9 @@ def kernel_times(device, gen) -> dict:
 def kernels_line(times: dict, launches: dict, k4_small: dict, k4_main: dict, k56: dict, rate: float) -> list[dict]:
     """The {"kernels": [...]} rows.  K1-K3: times at a depth-24 GKR round's
     shapes, the basic sumcheck's beside them.  K4a, K4b: times at the 2^24
-    MSM's shape, K4a's plain version run there lane by lane (one call cannot
-    hold its slots) and its times added up; both kernels' times at 2^12
-    points beside them.  K5, K6: time per launch over one 2^24-leaf tree and
+    MSM's shape (K4a: its bucket passes added up, its plain version run
+    PLAIN_CHUNK_UNITS units at a time, one call cannot hold its slots);
+    both kernels' times at 2^12 points beside them.  K5, K6: time per launch over one 2^24-leaf tree and
     one 2^24 forward transform.  ``launches`` is the depth-24 succinct
     path's count for K1-K4 and the 2^24 NTT -> FRI path's for K5 and K6;
     every path's count is beside it.  No PyTorch call computes any of these
@@ -958,7 +1059,8 @@ def kernels_line(times: dict, launches: dict, k4_small: dict, k4_main: dict, k56
                      "bound_by": main_shape["bound"][1], "library_ms": None, "shape": main_shape["shape"],
                      "small_shape": f"2^{K4_CHECK_LOG_N} points", "small_ms": k4_small[key]["ms"],
                      "small_plain_ms": k4_small[key]["plain_ms"],
-                     "max_abs_err_is": "points unequal to the plain version's as group elements"})
+                     "max_abs_err_is": "points unequal to the plain version's as group elements",
+                     **{k: v for k, v in main_shape.items() if k == "passes" or k.startswith("at_2^")}})
     for name, key, source, replaces in (
         ("keccak_rows", "K5", "tpu_zk_torch/csrc/keccak.cu", "tpu_zk/merkle/device_merkle.py:81"),
         ("dif_pass", "K6", "tpu_zk_torch/csrc/ntt.cu", "tpu_zk/ntt/sixstep.py:112, tpu_zk/fields/mxu_mul.py:405"),

@@ -53,15 +53,6 @@ VECTORS = {
 MSM_POINTS = 64
 
 
-@pytest.fixture(scope="module", autouse=True)
-def low_bucket_threshold():
-    """Every MSM of 2 points or more takes the bucket method (K4's plain
-    versions); a one-point MSM still takes double-and-add."""
-    saved, mp.BUCKET_THRESHOLD = mp.BUCKET_THRESHOLD, 2
-    yield
-    mp.BUCKET_THRESHOLD = saved
-
-
 def _curve(name):
     return DeviceCurve(name)
 
@@ -107,6 +98,39 @@ def _msm_inputs(name="bn254", n=MSM_POINTS):
 
 def _digit(code: int) -> int:
     return 0 if code & 64 else ((code & 31) + 1) * (-1 if code & 32 else 1)
+
+
+def _tpu_zk_codes(scalars, digits: torch.Tensor, n_codes: int) -> list[list[int]]:
+    """tpu_zk's packed base-32 codes, ``(|d|-1) | carry << 5 | skip << 6``,
+    built from the port's signed digits [W, N] at c = 5: the carry out of
+    window w is (raw_w + carry_w - d_w) / 32, raw_w the scalar's 5 bits
+    there; windows past W skip."""
+    rows = []
+    for s, column in zip(scalars, digits.T.tolist()):
+        carry, row = 0, []
+        for w, d in enumerate(column):
+            carry, rest = divmod(((s >> (5 * w)) & 31) + carry - d, 32)
+            assert rest == 0 and carry in (0, 1)
+            row.append(max(abs(d) - 1, 0) | carry << 5 | (d == 0) << 6)
+        rows.append(row + [64] * (n_codes - len(row)))
+    return rows
+
+
+def _signed(name, ks):
+    """Multipliers of G as the signed ints of least magnitude (r - k is -k)."""
+    r = params.CURVES[name]["r"]
+    return [k - r if k > r // 2 else k for k in ks]
+
+
+def _signed_multiples(name, ks):
+    """Affine k*G for small signed k: |k|*G, negated for k < 0 (cheaper on
+    host ints than a multiple by r - |k|)."""
+    hc = host_ec.HostCurve(name)
+    out = []
+    for k in ks:
+        a = hc.g1_affine(hc.g1_mul(hc.g1_generator(), abs(k))) if k else None
+        out.append((a[0], -a[1] % hc.p) if a is not None and k < 0 else a)
+    return out
 
 
 def _same(proof):
@@ -224,6 +248,8 @@ def test_host_ec_matches_tpu_zk(name):
         assert hc.g2_affine(hc.g2_mul(g2, k)) == jhc.g2_affine(jhc.g2_mul(jhc.g2_generator(), k))
     five = hc.g1_mul(g1, 5)
     assert host_ec.ec_eq(hc.g1_add(hc.g1_mul(g1, 2), hc.g1_mul(g1, 3)), five)
+    for P in (five, g1, host_ec.ec_identity(hc.zero, hc.one)):  # the doubling formula, against the complete add
+        assert host_ec.ec_eq(host_ec.ec_double(P, hc.b3_g1), hc.g1_add(P, P))
     assert hc.g1_affine(hc.g1_add(five, host_ec.ec_neg(five))) is None
     assert hc.g2_affine(hc.g2_sub(hc.g2_mul(g2, 5), hc.g2_mul(g2, 3))) == hc.g2_affine(hc.g2_mul(g2, 2))
 
@@ -301,10 +327,10 @@ def test_ec_equal_select_neg():
 
 @pytest.mark.parametrize("what", ["codes", "digits4", "digits8", "scalar_bits"])
 def test_digit_arrays_match_tpu_zk(what, ref):
-    _, _, limbs = _msm_inputs()
+    _, scalars, limbs = _msm_inputs()
     t = limbs_from_numpy(limbs)
     got = {
-        "codes": lambda: mp.signed_digit_codes(t),
+        "codes": lambda: torch.tensor(_tpu_zk_codes(scalars, mp.signed_digits(t, 5), 53), dtype=torch.int32),
         "digits4": lambda: fixed_base.digits4(t),
         "digits8": lambda: mp._digits(t, 8),
         "scalar_bits": lambda: ec_device.scalar_bits(arith.field_ctx("bn254_fr"), t),
@@ -313,21 +339,25 @@ def test_digit_arrays_match_tpu_zk(what, ref):
     assert np.array_equal(limbs_to_numpy(got), ref[what])
 
 
-def test_signed_digits_sum_to_the_scalar():
+@pytest.mark.parametrize("c", [5, 2, 3, 13, 16])
+def test_signed_digits_sum_to_the_scalar(c):
+    """Signed c-bit digits in (-2^(c-1), 2^(c-1)] that sum to the scalar, in
+    ceil(257 / c) windows; at c = 5 they pack as tpu_zk's codes (53 windows)."""
     _, scalars, limbs = _msm_inputs()
-    codes = mp.signed_digit_codes(limbs_from_numpy(limbs))
-    assert codes.shape == (MSM_POINTS, 53)
-    for s, row in zip(scalars, codes.tolist()):
-        digits = [_digit(c) for c in row]
-        assert all(-16 <= d <= 16 for d in digits)
-        assert sum(d * 32**i for i, d in enumerate(digits)) == s
-    # 256 bits leave window 51 one bit, so window 52 never gets a carry; 80 bits fill window 15
-    # and 2^80 - 1 = 32^16 - 1 carries into the final window
-    short = mp.signed_digit_codes(torch.full((1, 5), 0xFFFF, dtype=torch.int32))[0].tolist()
-    assert [_digit(c) for c in short] == [-1] + [0] * 15 + [1]
-    assert set(codes[7].tolist()) == {64}  # the zero scalar skips every window
-    by_window = mp._codes_by_window(limbs_from_numpy(limbs))
-    assert by_window.dtype == torch.uint8 and torch.equal(by_window.T.to(torch.int32), codes)
+    digits = mp.signed_digits(limbs_from_numpy(limbs), c)
+    assert digits.dtype == torch.int32 and digits.shape == (mp.window_count(256, c), MSM_POINTS)
+    half = 1 << (c - 1)
+    for s, column in zip(scalars, digits.T.tolist()):
+        assert all(-half < d <= half for d in column)
+        assert sum(d * 2 ** (c * i) for i, d in enumerate(column)) == s
+    assert set(digits[:, 7].tolist()) == {0}  # the zero scalar
+    if c == 5:
+        codes = _tpu_zk_codes(scalars, digits, 53)
+        assert [[_digit(x) for x in row] for row in codes] == [col + [0] for col in digits.T.tolist()]
+        assert set(codes[7]) == {64}  # the zero scalar skips every window
+        # 80 bits fill window 15, and 2^80 - 1 = 32^16 - 1 carries into the window after it
+        short = mp.signed_digits(torch.full((1, 5), 0xFFFF, dtype=torch.int32), 5)
+        assert [_digit(x) for x in _tpu_zk_codes([2**80 - 1], short, 17)[0]] == [-1] + [0] * 15 + [1]
 
 
 # -- fixed base, MSM, K4 -------------------------------------------------------
@@ -349,41 +379,72 @@ def test_fixed_base_and_msm_match_host(name):
         assert dc.msm_ints(points, [5, 0, 7, 11]) == _multiples(name, [1 * 5 + 3 * 7 + 4 * 11])[0]
 
 
-def _host_buckets(name, ks, codes, lanes):
-    """The multiplier of G that each (window, lane, bucket) must hold."""
-    r = params.CURVES[name]["r"]
-    W, n = codes.shape
-    want = np.zeros((W, lanes, kernels.BUCKETS), dtype=object)
-    for w in range(W):
-        for i in range(n):
-            c = int(codes[w, i])
-            if not c & 64:
-                want[w, i % lanes, c & 15] += -ks[i] if c & 32 else ks[i]
-    return want % r
+def _k4a_case(case):
+    """(curve, signed multipliers of G, scalar limbs as numpy, c, unit) of a
+    named K4a case."""
+    if case == "edge points and scalars, c 3, units of 2":
+        ks, _, limbs = _msm_inputs()
+        return "bn254", _signed("bn254", ks), limbs, 3, 2
+    if case == "bls12_381, c 5, units of 2":
+        ks, _, limbs = _msm_inputs("bls12_381", 12)
+        return "bls12_381", _signed("bls12_381", ks), limbs, 5, 2
+    rng = np.random.default_rng(22)
+    ks = [int(k) for k in rng.integers(-(1 << 20), 1 << 20, 16)]
+    if case == "all scalars equal, c 4, units of 3":
+        scalars = [int.from_bytes(rng.bytes(32), "little") % params.CURVES["bn254"]["r"]] * 16
+        return "bn254", ks, np.array([[(s >> (16 * i)) & 0xFFFF for i in range(16)] for s in scalars], np.uint32), 4, 3
+    if case == "scalars 0 and 1, c 2, units of 4":
+        limbs = np.zeros((16, 16), dtype=np.uint32)
+        limbs[::3, 0] = 1
+        return "bn254", ks, limbs, 2, 4
+    raise KeyError(case)
 
 
-@pytest.mark.parametrize("name,n,lanes", [("bn254", MSM_POINTS, 3), ("bn254", 5, 8), ("bls12_381", 12, 2)])
-def test_k4_plain_versions_match_host(name, n, lanes):
-    """K4a's buckets and K4b's weighted totals (through the wrappers, which
-    on the CPU run the plain versions and the word packing) against host
-    ints, bucket by bucket: duplicates, P and -P, identity points, scalars
-    0, 1, r - 1 and 2^256 - 1, a ragged tail (64 = 21*3 + 1), n < lanes."""
+K4A_CASES = ["edge points and scalars, c 3, units of 2", "all scalars equal, c 4, units of 3",
+             "scalars 0 and 1, c 2, units of 4", "bls12_381, c 5, units of 2"]
+
+
+@pytest.mark.parametrize("case", K4A_CASES)
+def test_k4_plain_versions_match_host(case):
+    """K4a's bucket sums (through the sort, the unit tables and every pass
+    of the wrapper, which on the CPU runs the plain version) against host
+    ints, bucket by bucket: buckets split over several units and passes,
+    one bucket a window, empty buckets, duplicates, P and -P, identity
+    points, scalars 0, 1, r - 1 and 2^256 - 1."""
+    name, ks, limbs, c, unit = _k4a_case(case)
     dc = _curve(name)
-    ks, _, limbs = _msm_inputs()
-    ks, limbs = ks[:n], limbs[:n]
-    points = dc.points_to_device(_multiples(name, ks))
-    codes = mp._codes_by_window(limbs_from_numpy(limbs))
-    words = kernels.msm_buckets(dc.ctx, dc.b3, points, codes, lanes)
-    assert words.shape == (53, lanes, kernels.BUCKETS, 3, dc.ctx.L // 2) and words.dtype == torch.int32
-    want = _host_buckets(name, ks, codes.numpy(), lanes)
-    got = dc.points_to_host(kernels.unpack_buckets(words))
-    assert got == _multiples(name, want.reshape(-1).tolist())
-    assert torch.equal(kernels.pack_buckets(kernels.unpack_buckets(words)), words)
+    points = dc.points_to_device(_signed_multiples(name, ks))
+    digits = mp.signed_digits(limbs_from_numpy(limbs), c)
+    W, B = digits.shape[0], 1 << (c - 1)
+    entries, counts = mp._bucket_entries(digits, c)
+    assert entries.dtype == torch.int32 and counts.shape == (W * B,) and int(counts.sum()) == int((digits != 0).sum())
+    units, per_bucket = mp._unit_table(counts, unit)
+    assert int(units[:, 1].max()) <= unit and int(per_bucket.max()) > 1  # a bucket split: a second pass
+    sums = mp._sum_groups(dc.ctx, dc.b3, points, entries, counts, unit)
+    assert sums.shape == (W * B, 3, dc.ctx.L) and sums.dtype == torch.int32
+    want = np.zeros((W, B), dtype=object)
+    for w, row in enumerate(digits.tolist()):
+        for k, d in zip(ks, row):
+            if d:
+                want[w, abs(d) - 1] += k if d > 0 else -k
+    assert dc.points_to_host(kernels.rows_to_points(sums)) == _signed_multiples(name, want.reshape(-1).tolist())
 
-    totals = kernels.msm_bucket_reduce(dc.ctx, dc.b3, words)
-    weights = np.arange(1, kernels.BUCKETS + 1, dtype=object)
-    want_totals = (want * weights).sum(axis=2) % dc.fr.p
-    assert dc.points_to_host(totals) == _multiples(name, want_totals.reshape(-1).tolist())
+
+@pytest.mark.parametrize("B,m", [(8, 4), (8, 3), (5, 2), (4, 16)])
+def test_k4b_plain_version_matches_host(B, m):
+    """K4b's segment totals sum_b (b+1) S_b against host ints, with
+    segments that divide the bucket count and segments that do not."""
+    name = "bn254"
+    dc = _curve(name)
+    rng = np.random.default_rng(B * 100 + m)
+    a = [[int(x) for x in rng.integers(-(1 << 16), 1 << 16, B)] for _ in range(2)]
+    a[0][1] = 0  # an empty bucket
+    buckets = kernels.points_to_rows(dc.points_to_device(_signed_multiples(name, sum(a, [])))).view(2, B, 3, dc.ctx.L)
+    got = kernels.msm_bucket_reduce(dc.ctx, dc.b3, buckets.contiguous(), m)
+    S = -(-B // m)
+    assert got.shape == (2, S, 3, dc.ctx.L)
+    want = [sum((b + 1) * a[w][b] for b in range(j * m, min(j * m + m, B))) for w in range(2) for j in range(S)]
+    assert dc.points_to_host(kernels.rows_to_points(got)) == _signed_multiples(name, want)
 
 
 def test_msm_pippenger_matches_tpu_zk(ref):
@@ -393,34 +454,39 @@ def test_msm_pippenger_matches_tpu_zk(ref):
     dc = _curve("bls12_381")
     ks, scalars, limbs = _msm_inputs("bls12_381", 8)
     points = dc.points_to_device(_multiples("bls12_381", ks))
-    got = dc.point_to_host(mp.msm_pippenger(dc.ctx, dc.b3, (points, limbs_from_numpy(limbs)), lanes=3))
+    got = dc.point_to_host(mp.msm_pippenger(dc.ctx, dc.b3, (points, limbs_from_numpy(limbs))))
     assert got == _multiples("bls12_381", [sum(k * s for k, s in zip(ks, scalars))])[0]
     assert got == ref["msm"]
 
 
-def test_msm_pippenger_at_64_points_matches_host():
-    """The bucket method forced at 64 BN254 points (ragged lanes) against
-    host ints; a CPU tensor launches no kernel."""
+@pytest.mark.parametrize("c", [None, 3, 7])
+def test_msm_pippenger_at_64_points_matches_host(c):
+    """The bucket method at 64 BN254 points, at the window the size rule
+    picks and at others, against host ints; a CPU tensor launches no
+    kernel."""
     dc = _curve("bn254")
     ks, scalars, limbs = _msm_inputs()
     points = dc.points_to_device(_multiples("bn254", ks))
-    before = kernels.msm_buckets.launches
-    got = dc.point_to_host(mp.msm_pippenger(dc.ctx, dc.b3, (points, limbs_from_numpy(limbs)), lanes=5, threshold=64))
+    before = kernels.msm_buckets.launches, kernels.msm_bucket_reduce.launches
+    got = dc.point_to_host(mp.msm_pippenger(dc.ctx, dc.b3, (points, limbs_from_numpy(limbs)), c=c))
     assert got == _multiples("bn254", [sum(k * s for k, s in zip(ks, scalars))])[0]
-    assert kernels.msm_buckets.launches == before
+    assert (kernels.msm_buckets.launches, kernels.msm_bucket_reduce.launches) == before
 
 
-def test_msm_pippenger_size_rule():
-    """Below the threshold the double-and-add MSM runs; at it, the bucket
-    method; both give the same point.  All-zero scalars give the identity."""
+@pytest.mark.parametrize("n", [0, 1, 2, 3])
+def test_msm_pippenger_size_rule(n):
+    """The window grows with N (2 bits for a point or two, 16 from ~2^17
+    points), and the bucket method serves every N: 0 points give the
+    identity, and 1 to 3 points (random and all-zero scalars) equal host
+    ints."""
+    assert [mp.window_bits(1 << k) for k in (0, 1, 3, 6, 10, 16, 20, 24)] == [2, 2, 3, 5, 8, 13, 16, 16]
+    assert all(mp.window_bits(1 << k) <= mp.window_bits(1 << (k + 1)) for k in range(30))
     dc = _curve("bn254")
     ks, scalars, limbs = _msm_inputs()
-    points = tuple(c[:3] for c in dc.points_to_device(_multiples("bn254", ks[:3])))
-    s = limbs_from_numpy(limbs[:3])
-    want = _multiples("bn254", [sum(k * x for k, x in zip(ks[:3], scalars[:3]))])[0]
-    assert mp.BUCKET_THRESHOLD == 2
-    assert dc.point_to_host(mp.msm_pippenger(dc.ctx, dc.b3, (points, s), threshold=4)) == want  # double-and-add
-    assert dc.point_to_host(mp.msm_pippenger(dc.ctx, dc.b3, (points, s))) == want  # buckets
+    points = tuple(c[:n] for c in dc.points_to_device(_multiples("bn254", ks[:max(n, 1)])))
+    s = limbs_from_numpy(limbs[:n]) if n else torch.zeros((0, 16), dtype=torch.int32)
+    want = _multiples("bn254", [sum(k * x for k, x in zip(ks[:n], scalars[:n]))])[0]
+    assert dc.point_to_host(mp.msm_pippenger(dc.ctx, dc.b3, (points, s))) == want
     assert dc.point_to_host(mp.msm_pippenger(dc.ctx, dc.b3, (points, torch.zeros_like(s)))) is None
 
 
@@ -428,21 +494,32 @@ def test_k4_wrappers_check_inputs():
     dc = _curve("bn254")
     ctx = dc.ctx
     points = dc.points_to_device(_multiples("bn254", [1, 2, 3, 4]))
-    codes = torch.zeros((53, 4), dtype=torch.uint8)
+    entries = torch.tensor([0, 1, 2 | kernels.SIGN, 3], dtype=torch.int32)
+    units = torch.tensor([[0, 2], [2, 2]], dtype=torch.int32)
+    assert dc.points_to_host(kernels.rows_to_points(kernels.msm_buckets(ctx, dc.b3, points, entries, units))) == \
+        _multiples("bn254", [3, 4 - 3])
     with pytest.raises(ValueError):
-        kernels.msm_buckets(ctx, dc.b3, points, codes.to(torch.int32), 2)
+        kernels.msm_buckets(ctx, dc.b3, points, entries.to(torch.int64), units)
     with pytest.raises(ValueError):
-        kernels.msm_buckets(ctx, dc.b3, points, codes[:, :3].contiguous(), 2)
+        kernels.msm_buckets(ctx, dc.b3, points, entries, units.to(torch.int64))
     with pytest.raises(ValueError):
-        kernels.msm_buckets(ctx, dc.b3, points, codes, 0)
-    with pytest.raises(TypeError):
-        kernels.msm_buckets(ctx, dc.b3, tuple(c.to(torch.int64) for c in points), codes, 2)
+        kernels.msm_buckets(ctx, dc.b3, points, entries, units[:, :1].contiguous())
     with pytest.raises(ValueError):
-        kernels.msm_bucket_reduce(ctx, dc.b3, torch.zeros((53, 2, 16, 3, 12), dtype=torch.int32))
+        kernels.msm_buckets(ctx, dc.b3, (points[0], torch.cat([points[1]] * 2, dim=1)[:, :ctx.L], points[2]),
+                            entries, units)  # rows of X and Y strided differently
+    with pytest.raises(ValueError):
+        kernels.msm_buckets(ctx, dc.b3, tuple(c.to(torch.int64) for c in points), entries, units)
+    with pytest.raises(ValueError):
+        kernels.msm_bucket_reduce(ctx, dc.b3, torch.zeros((2, 4, 3, 24), dtype=torch.int32), 2)
+    with pytest.raises(ValueError):
+        kernels.msm_bucket_reduce(ctx, dc.b3, torch.zeros((2, 0, 3, 16), dtype=torch.int32), 2)
+    with pytest.raises(ValueError):
+        kernels.msm_bucket_reduce(ctx, dc.b3, torch.zeros((2, 4, 3, 16), dtype=torch.int32), 0)
     meta = tuple(torch.empty((4, ctx.L), dtype=torch.int32, device="meta") for _ in range(3))
     with pytest.raises(ValueError):  # neither CPU nor CUDA: no plain version, no launch
-        kernels.msm_buckets(ctx, dc.b3.to("meta"), meta, codes.to("meta"), 2)
-    assert kernels.default_lanes(ctx, 1 << 20, 53, "cpu") == kernels.CPU_LANES
+        kernels.msm_buckets(ctx, dc.b3.to("meta"), meta, entries.to("meta"), units.to("meta"))
+    with pytest.raises(ValueError):  # the kernels know 3b of the curves' base fields only
+        kernels._b3_int(arith.field_ctx("bn254_fr"))
 
 
 # -- KZG -----------------------------------------------------------------------

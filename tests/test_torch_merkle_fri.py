@@ -7,8 +7,8 @@ and ``keccak_fixed_batch`` (on the CPU the XLA lane path
 ``_hash_block_T_pallas``, which the JAX suite never runs in interpret mode);
 ``merkle_field_tree`` levels and ``MerkleTree`` roots and paths; and whole
 ``FriProof``s (roots, final codeword, every query's index, values and
-paths) for a BN254 Fr domain of 2^8 (six rounds) and a BLS12-381 Fr
-domain of 2^6 (two rounds, final size 2^4).  Each package verifies the
+paths) for a BN254 Fr domain of 2^8 and a BLS12-381 Fr domain of 2^6
+(four and two rounds, final size 2^4).  Each package verifies the
 other's proof and rejects it tampered.  On the CPU the port runs its
 kernels' plain versions; everything is integer or byte arithmetic, so every
 comparison is exact (tolerance zero).
@@ -47,7 +47,7 @@ WIDTHS = [0, 1, 32, 64, 134, 135]
 ROWS = 9
 TREE_LEAVES = 64
 # (field, domain_log2, final_size_log2, num_queries); blowup 4 throughout
-FRI_CASES = {"bn254_fr 2^8": ("bn254_fr", 8, 2, 10), "bls12_381_fr 2^6": ("bls12_381_fr", 6, 4, 8)}
+FRI_CASES = {"bn254_fr 2^8": ("bn254_fr", 8, 4, 10), "bls12_381_fr 2^6": ("bls12_381_fr", 6, 4, 8)}
 TAMPERS = ["none", "final codeword", "query value", "merkle sibling"]
 
 

@@ -34,7 +34,9 @@ torch.set_num_threads(1)  # small tensors: more threads only take cores from the
 CASES = [("bn254_fr", 0), ("bn254_fr", 1), ("bn254_fr", 3), ("bn254_fr", 9), ("bls12_381_fr", 9)]
 CASE_IDS = [f"{f} 2^{k}" for f, k in CASES]
 PASSES = {1: 9, 2: 5, 3: 3}  # passes of the port's plan at k = 9 -> its max_log
-PRODUCTS = {"bn254_fr": (5, 7), "bls12_381_fr": (9, 4)}  # operand lengths of polynomial_multiply
+# operand lengths of polynomial_multiply: products of 8 and 499 coefficients take the 2^3 and 2^9
+# transforms of CASES, so tpu_zk compiles no transform for them
+PRODUCTS = {"bn254_fr": (5, 4), "bls12_381_fr": (300, 200)}
 # one K6 block: radix m over B columns, as [L, m, B] for the JAX kernels
 BLOCK_M, BLOCK_B = 8, 8
 DIF_VARIANTS = ["plain", "pre", "pre and scale"]

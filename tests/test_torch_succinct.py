@@ -28,7 +28,6 @@ from tpu_zk.circuit import layered as jlayered
 from tpu_zk.fields import arith as jarith
 from tpu_zk_torch import device as tdevice
 from tpu_zk_torch.circuit.layered import ADD, tree_sum_circuit
-from tpu_zk_torch.curves import msm_pippenger as mp
 from tpu_zk_torch.curves import params
 from tpu_zk_torch.fields import arith
 from tpu_zk_torch.gkr import breakdown, sparse
@@ -42,16 +41,6 @@ torch.set_num_threads(1)  # small tensors: more threads only take cores from the
 JG = jlayered.Gate
 CASES = ["bls12_381 mixed 2 layers", "bls12_381 add tree depth 3"]
 FUSED_CASES = CASES[:1]  # the cases that also go through tpu_zk's fused prover
-
-
-@pytest.fixture(scope="module", autouse=True)
-def low_bucket_threshold():
-    """Every MSM takes the bucket method (K4's plain versions): on the CPU a
-    double-and-add MSM costs seconds whatever its size.  That path is held
-    against tpu_zk in tests/test_torch_curves_kzg.py."""
-    saved, mp.BUCKET_THRESHOLD = mp.BUCKET_THRESHOLD, 1
-    yield
-    mp.BUCKET_THRESHOLD = saved
 
 
 def _case(name):
@@ -255,9 +244,11 @@ def test_succinct_breakdown_times_every_stage():
     assert set(out["setup_stage_calls"]) == {s for _, _, s in breakdown.SUCCINCT_STAGES if s.startswith("setup:")}
     calls = out["prove_stage_calls"]
     assert calls["commit, rest (from_mont)"] == 1 and calls["open, rest (evaluate, quotients, folds)"] == 2
-    # the commit on 4 points and each open's 2-point and 1-point MSMs all take the bucket method here
-    assert calls["msm: K4a buckets"] == calls["msm: K4b bucket reduce"] == calls["msm: signed digits"] == 5
-    assert "msm: double-and-add below the bucket threshold (K1, K3)" not in calls
+    # the commit on 4 points and each open's 2-point and 1-point MSMs: every stage of the bucket method,
+    # K4a at least once for the buckets and once for the window sums
+    assert (calls["msm: signed digits"] == calls["msm: sort into buckets"] == calls["msm: K4b segment reduce"]
+            == calls["msm: window sums, rest"] == calls["msm: window combine (host ints)"] == 5)
+    assert calls["msm: K4a unit sums"] == calls["msm: unit tables"] >= 10
     assert calls["msm: result to affine host ints"] == 5
     assert out["verify_stage_calls"]["verify: native pairing product"] == 2
     assert out["verify_stage_calls"]["verify: layers"] == 1

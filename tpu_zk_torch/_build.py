@@ -79,12 +79,10 @@ KERNEL_ARGTYPES = {
     "tzk_mont_mul": [_PTR, _PTR, _PTR, _I64, _I32, _I32, _PTR, _U32, _PTR],
     "tzk_addsub": [_PTR, _PTR, _PTR, _I64, _I32, _I32, _I32, _PTR, _PTR],
     "tzk_fold": [_PTR, _PTR, _PTR, _PTR, _I64, _I64, _I64, _I32, _PTR, _U32, _PTR],
-    # px, py, pz, codes, b3, one, buckets, n, W, lanes, L, p32, n0inv, stream
-    "tzk_msm_buckets": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I32, _I32, _I32, _PTR, _U32, _PTR],
-    # buckets, b3, one, out, W * lanes, L, p32, n0inv, stream
-    "tzk_msm_bucket_reduce": [_PTR, _PTR, _PTR, _PTR, _I64, _I32, _PTR, _U32, _PTR],
-    # L -> threads of tzk_msm_buckets the card keeps resident at once (negative: -cudaError_t)
-    "tzk_msm_resident_threads": [_I32],
+    # px, py, pz, row stride, entries (may be null), units, one, out, units count, L, 3b, p32, n0inv, stream
+    "tzk_msm_buckets": [_PTR, _PTR, _PTR, _I64, _PTR, _PTR, _PTR, _PTR, _I64, _I32, _I32, _PTR, _U32, _PTR],
+    # buckets, out, W, B, m, L, 3b, p32, n0inv, stream
+    "tzk_msm_bucket_reduce": [_PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _PTR, _U32, _PTR],
     # x, tws, pre, scale, dst, out, A, log_m, C, L, p32, n0inv, stream (csrc/ntt.cu); pre, scale, dst may be null
     "tzk_ntt_pass": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I32, _I64, _I32, _PTR, _U32, _PTR],
     # data, out, n rows, w bytes a row, stream (csrc/keccak.cu)

@@ -5,6 +5,9 @@
 // (2015, Algorithm 7): no branch on equal, opposite or identity operands, in
 // the operation order of tpu_zk/curves/ec_pallas.py:49-63 (_ec_add_rows) and
 // of tpu_zk_torch.curves.ec_device.ec_add, so all three give the same limbs.
+// Its two products by the curve constant 3b are additions here (mul_b3): the
+// same canonical field element, so the limbs stay equal, for 12 Montgomery
+// products an add instead of 14.
 #pragma once
 
 #include "field.cuh"
@@ -16,40 +19,24 @@ struct PointN {
   uint32_t x[N], y[N], z[N];
 };
 
-// Raw N-word loads and stores (no 16-bit repacking), 16 bytes at a time.
+// Points in the package's layout: coordinates of 2N int32 16-bit limbs
+// (field.cuh's load_elem/store_elem).  load_point reads row ``row`` of three
+// coordinate arrays whose rows lie ``stride`` words apart; a stored row is
+// X, Y, Z, 3 * 2N limbs.
 template <int N>
-__device__ __forceinline__ void load_words(const uint32_t* __restrict__ src, uint32_t (&x)[N]) {
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-#pragma unroll
-  for (int q = 0; q < N / 4; ++q) {
-    const uint4 w = s[q];
-    x[4 * q] = w.x;
-    x[4 * q + 1] = w.y;
-    x[4 * q + 2] = w.z;
-    x[4 * q + 3] = w.w;
-  }
+__device__ __forceinline__ void load_point(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+                                           const uint32_t* __restrict__ pz, int64_t row, int64_t stride,
+                                           PointN<N>& p) {
+  load_elem<N>(px + row * stride, p.x);
+  load_elem<N>(py + row * stride, p.y);
+  load_elem<N>(pz + row * stride, p.z);
 }
 
 template <int N>
-__device__ __forceinline__ void store_words(uint32_t* __restrict__ dst, const uint32_t (&x)[N]) {
-  uint4* d = reinterpret_cast<uint4*>(dst);
-#pragma unroll
-  for (int q = 0; q < N / 4; ++q) d[q] = make_uint4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
-}
-
-// A point stored as 3 * N consecutive words (X, Y, Z).
-template <int N>
-__device__ __forceinline__ void load_point_words(const uint32_t* __restrict__ src, PointN<N>& p) {
-  load_words<N>(src, p.x);
-  load_words<N>(src + N, p.y);
-  load_words<N>(src + 2 * N, p.z);
-}
-
-template <int N>
-__device__ __forceinline__ void store_point_words(uint32_t* __restrict__ dst, const PointN<N>& p) {
-  store_words<N>(dst, p.x);
-  store_words<N>(dst + N, p.y);
-  store_words<N>(dst + 2 * N, p.z);
+__device__ __forceinline__ void store_point_row(uint32_t* __restrict__ dst, const PointN<N>& p) {
+  store_elem<N>(dst, p.x);
+  store_elem<N>(dst + 2 * N, p.y);
+  store_elem<N>(dst + 4 * N, p.z);
 }
 
 template <int N>
@@ -73,10 +60,25 @@ __device__ __forceinline__ void neg_y(uint32_t (&y)[N], const FieldParams& f) {
   for (int j = 0; j < N; ++j) y[j] = out[j];
 }
 
-// r = p + q (complete; r may alias p or q).
-template <int N>
-__device__ __forceinline__ void ec_add(PointN<N>& r, const PointN<N>& p, const PointN<N>& q,
-                                       const uint32_t (&b3)[N], const FieldParams& f) {
+// out = K x for the curve constant K = 3b: 9 = 8 + 1 (BN254, b = 3) or
+// 12 = 8 + 4 (BLS12-381, b = 4), by four modular additions.  out may alias x.
+template <int N, int K>
+__device__ __forceinline__ void mul_b3(uint32_t (&out)[N], const uint32_t (&x)[N], const FieldParams& f) {
+  static_assert(K == 9 || K == 12, "3b is 9 (BN254) or 12 (BLS12-381)");
+  uint32_t x2[N], x4[N], x8[N];
+  mod_add<N>(x2, x, x, f);
+  mod_add<N>(x4, x2, x2, f);
+  mod_add<N>(x8, x4, x4, f);
+  if constexpr (K == 9) {
+    mod_add<N>(out, x8, x, f);
+  } else {
+    mod_add<N>(out, x8, x4, f);
+  }
+}
+
+// r = p + q (complete; r may alias p or q or both).  K = 3b (mul_b3).
+template <int N, int K>
+__device__ __forceinline__ void ec_add(PointN<N>& r, const PointN<N>& p, const PointN<N>& q, const FieldParams& f) {
   uint32_t t0[N], t1[N], t2[N], t3[N], t4[N], t5[N], u[N], v[N];
   mont_mul<N>(t0, p.x, q.x, f);
   mont_mul<N>(t1, p.y, q.y, f);
@@ -97,8 +99,8 @@ __device__ __forceinline__ void ec_add(PointN<N>& r, const PointN<N>& p, const P
   mod_sub<N>(t5, t5, t0, f);
   mod_sub<N>(t5, t5, t2, f);  // X1Z2 + X2Z1
   // p and q are dead from here on: r may be written
-  mont_mul<N>(t2, b3, t2, f);  // t2b3
-  mont_mul<N>(t5, b3, t5, f);  // y3g
+  mul_b3<N, K>(t2, t2, f);  // t2b3
+  mul_b3<N, K>(t5, t5, f);  // y3g
   mod_add<N>(u, t0, t0, f);
   mod_add<N>(t0, u, t0, f);    // three_t0
   mod_add<N>(v, t1, t2, f);    // z3t

@@ -1,41 +1,50 @@
 // The MSM bucket kernels (K4), behind a plain C interface loaded with ctypes
 // (tpu_zk_torch/_build.py builds this file with nvcc for sm_90a).
 //
-// K4a tzk_msm_buckets -- Pippenger bucket accumulation, every window in one
-//   launch.  Replaces tpu_zk/curves/ec_pallas.py:114 msm_buckets_pallas and
-//   the accumulation stage of :273 msm_buckets13_pallas (signed base-32
-//   codes idx | sign << 5 | skip << 6, conditional Y negate).  The TPU
-//   kernels carry a per-window bucket table in VMEM across a sequential grid
-//   and pick buckets by one-hot masks over K lanes.  Here blocks run in no
-//   order and nothing carries over, so one thread owns one (window, lane):
-//   it walks points lane, lane + P, lane + 2P, ... (neighbouring threads read
-//   neighbouring points and code bytes), and for each does one read, complete
-//   add and write of the bucket its code names.  The thread's 16 buckets are
-//   a 16 * 3 * N-word stretch of a scratch tensor that is also the output,
-//   [W, P, 16, 3, N] words: a bucket is 96 (N = 8) or 144 (N = 12) contiguous
-//   bytes moved as 16-byte words, so a warp whose threads name 32 different
-//   buckets still uses every byte of every sector it touches (a lane-minor
-//   layout would use 4 of each 32).  No atomics and no sort: the result does
-//   not depend on scheduling.
-//   Bound by operations: per point and window one complete add = 14
-//   Montgomery products (12 of them needed: the two by b3 could be a few
-//   additions) of 2 N^2 wide multiply-adds each -- (uint64_t)a * b + c, the
-//   instruction field.cuh's CIOS issues, whose rate csrc/probe.cu measures --
-//   against ~(3 * 2N * 4) point bytes read and 2 * 3 * N * 4 bucket bytes,
-//   most of which stay in L2.
-//   P is chosen by the wrapper from tzk_msm_resident_threads so that W * P
-//   threads are one full wave of the card: a second, part-filled wave would
-//   double the time of a kernel whose threads all run equally long.
+// They replace tpu_zk/curves/ec_pallas.py:114 msm_buckets_pallas and :273
+// msm_buckets13_pallas: K4a its bucket accumulation, K4b its tail, the
+// per-lane weighted bucket total of :239-269.  The TPU kernels carry a
+// bucket table of 16 buckets (signed base-32 digits) in VMEM across a
+// sequential grid and pick buckets by one-hot masks.  Here the digits are
+// signed c-bit ones, c up to 16 (2^(c-1) buckets a window, so a 254-bit
+// scalar takes 16 adds a point, not 53), and the caller sorts each window's
+// points by bucket (curves/msm_pippenger.py), so no kernel routes or masks.
 //
-// K4b tzk_msm_bucket_reduce -- the weighted bucket total of each (window,
-//   lane): acc += S_b; tot += acc for b = 15 .. 0, so tot = sum_b (b+1) S_b.
-//   Replaces the tail of msm_buckets13_pallas (ec_pallas.py:239-269).  One
-//   thread per (window, lane), 32 complete adds; writes 16-bit limbs
-//   [W * P, 3, 2N] for the tree over lanes that follows in PyTorch.  Bound by
-//   operations too, and small beside K4a (32 adds against N/P per thread).
+// K4a tzk_msm_buckets -- one thread sums one unit: a run of at most R
+//   consecutive entries of a bucket's list into one partial point.  An entry
+//   is a point index with the sign in bit 31 (Y negated), or, with no entry
+//   list, the row itself: the same kernel then sums the partials of a bucket
+//   that spans several units, pass after pass, and the segment totals of K4b
+//   into window sums.  The caller cuts every list into units of at most R, so
+//   every thread of a warp does about the same number of adds whatever the
+//   scalars: all-equal scalars put each window's points into one bucket and
+//   take a few more (short) passes, never 2^24 adds on one thread.  Each
+//   thread sums its unit in order, so two launches give the same limbs.
+//   Bound by operations: per entry one complete add of 12 Montgomery products
+//   (mul_b3 does the products by 3b with additions) of 2 N^2 wide
+//   multiply-adds, (uint64_t)a * b + c on 32-bit limbs -- the instruction
+//   whose rate csrc/probe.cu measures -- against 4 + 3 * 2N * 4 bytes read
+//   (an entry and a point of 16-bit limbs).  The design's answer: the adds
+//   are a serial chain per thread, so the next entry's index and point are
+//   loaded before the current add and their latency hides under its ~2,000
+//   instructions; two warps a scheduler then keep it issuing (kUnitMinBlocks).
 //
-// Both launch on the caller's stream, allocate nothing, and return
-// cudaGetLastError() so the Python wrapper can raise on a refused launch.
+// K4b tzk_msm_bucket_reduce -- one thread per (window, segment of m
+//   buckets): the running sums acc += S_b; tot += acc from the segment's top
+//   bucket down give sum_b (b - lo + 1) S_b over the segment's buckets
+//   lo..hi-1, and lo * acc, by double-and-add over the bits of lo, makes
+//   the weights the true b + 1.  Bound by operations too, counted from the
+//   function: weighing a window's B buckets takes 2 adds a bucket by running
+//   sums, and carrying its S segments' offsets 2 adds a segment by a second
+//   running sum over their sums.  The double-and-add offsets here take
+//   more adds than that (up to 2 (c - 1) a segment), still few beside K4a's
+//   (2^c adds a window against N).
+//
+// Points cross as rows of int32 16-bit limbs, [.., 3, 2N] (X, Y, Z), the
+// package's layout; a thread repacks to 32-bit limbs on load and back on
+// store.  Both kernels launch on the caller's stream, allocate nothing, and
+// return cudaGetLastError() so the Python wrapper can raise on a refused
+// launch.
 
 #include <cuda_runtime.h>
 
@@ -45,159 +54,136 @@
 
 namespace tzk {
 
-constexpr int kMsmThreads = 128;
-constexpr int kBuckets = 16;
-// blocks per SM the compiler must leave room for: caps the registers of a
-// thread at 168 (N = 8) and 255 (N = 12)
-constexpr int min_blocks(int n) { return n <= 8 ? 3 : 2; }
+constexpr int kUnitThreads = 128;
+constexpr int kReduceThreads = 128;
+// K4a's blocks per SM that the compiler must leave registers for: 2 leaves
+// 255 a thread, and the N = 8 kernel needs about 210 of them, with no spills
+// (3 and 4 blocks spill and were no faster on the H100: PERF.md).
+constexpr int kUnitMinBlocks = 2;
 
-template <int N>
-__global__ void __launch_bounds__(kMsmThreads, min_blocks(N))
-    msm_buckets_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
-                       const uint32_t* __restrict__ pz, const uint8_t* __restrict__ codes,
-                       const uint32_t* __restrict__ b3_limbs, const uint32_t* __restrict__ one_limbs,
-                       uint32_t* __restrict__ buckets, int64_t n, int64_t threads, int lanes, FieldParams f) {
+template <int N, int K>
+__global__ void __launch_bounds__(kUnitThreads, kUnitMinBlocks)
+    msm_units_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+                     const uint32_t* __restrict__ pz, int64_t stride, const int32_t* __restrict__ entries,
+                     const int32_t* __restrict__ units, const uint32_t* __restrict__ one_limbs,
+                     uint32_t* __restrict__ out, int64_t n_units, FieldParams f) {
   constexpr int L = 2 * N;
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= threads) return;
-  const int64_t w = t / lanes;
-  const int64_t lane = t % lanes;
-  uint32_t* mine = buckets + t * (kBuckets * 3 * N);
-
-  uint32_t b3[N], one[N];
-  load_elem<N>(b3_limbs, b3);
-  load_elem<N>(one_limbs, one);
-  {
-    PointN<N> id;
-    set_identity<N>(id, one);
-    for (int b = 0; b < kBuckets; ++b) store_point_words<N>(mine + b * 3 * N, id);
+  const int64_t u = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (u >= n_units) return;
+  const int32_t start = units[2 * u];
+  const int32_t count = units[2 * u + 1];
+  PointN<N> acc;
+  if (count == 0) {
+    uint32_t one[N];
+    load_elem<N>(one_limbs, one);
+    set_identity<N>(acc, one);
+  } else {
+    // an entry: a point index, its sign in bit 31; with no entry list, the row itself
+    int32_t e = entries ? __ldg(entries + start) : start;
+    load_point<N>(px, py, pz, e & 0x7FFFFFFF, stride, acc);
+    if (e < 0) neg_y<N>(acc.y, f);
+    PointN<N> next;
+    if (count > 1) {
+      e = entries ? __ldg(entries + start + 1) : start + 1;
+      load_point<N>(px, py, pz, e & 0x7FFFFFFF, stride, next);
+    }
+    for (int k = 1; k < count; ++k) {
+      PointN<N> q = next;
+      const bool negative = e < 0;
+      if (k + 1 < count) {  // the next entry's loads go out before this add
+        e = entries ? __ldg(entries + start + k + 1) : start + k + 1;
+        load_point<N>(px, py, pz, e & 0x7FFFFFFF, stride, next);
+      }
+      if (negative) neg_y<N>(q.y, f);
+      ec_add<N, K>(acc, acc, q, f);
+    }
   }
-
-  const uint8_t* my_codes = codes + w * n;
-  for (int64_t i = lane; i < n; i += lanes) {
-    const uint32_t code = my_codes[i];
-    if (code & 64u) continue;  // digit 0
-    PointN<N> q, acc;
-    load_elem<N>(px + i * L, q.x);
-    load_elem<N>(py + i * L, q.y);
-    load_elem<N>(pz + i * L, q.z);
-    if (code & 32u) neg_y<N>(q.y, f);
-    uint32_t* slot = mine + (code & 15u) * (3 * N);
-    load_point_words<N>(slot, acc);
-    ec_add<N>(acc, acc, q, b3, f);
-    store_point_words<N>(slot, acc);
-  }
+  store_point_row<N>(out + u * 3 * L, acc);
 }
 
-template <int N>
-__global__ void __launch_bounds__(kMsmThreads)
-    msm_bucket_reduce_kernel(const uint32_t* __restrict__ buckets, const uint32_t* __restrict__ b3_limbs,
-                             const uint32_t* __restrict__ one_limbs, uint32_t* __restrict__ out, int64_t threads,
-                             FieldParams f) {
+template <int N, int K>
+__global__ void __launch_bounds__(kReduceThreads)
+    msm_reduce_kernel(const uint32_t* __restrict__ buckets, uint32_t* __restrict__ out, int64_t threads, int B,
+                      int m, int S, FieldParams f) {
   constexpr int L = 2 * N;
   const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= threads) return;
-  const uint32_t* mine = buckets + t * (kBuckets * 3 * N);
-  uint32_t b3[N], one[N];
-  load_elem<N>(b3_limbs, b3);
-  load_elem<N>(one_limbs, one);
+  const int64_t w = t / S;
+  const int lo = (int)(t % S) * m;
+  const int hi = min(lo + m, B);
+  const uint32_t* row = buckets + w * B * 3 * L;
+
   PointN<N> acc, tot;
-  set_identity<N>(acc, one);
-  set_identity<N>(tot, one);
-  for (int b = kBuckets - 1; b >= 0; --b) {
+  load_point<N>(row, row + L, row + 2 * L, hi - 1, 3 * L, acc);
+  tot = acc;
+  for (int b = hi - 2; b >= lo; --b) {
     PointN<N> s;
-    load_point_words<N>(mine + b * 3 * N, s);
-    ec_add<N>(acc, acc, s, b3, f);
-    ec_add<N>(tot, tot, acc, b3, f);
+    load_point<N>(row, row + L, row + 2 * L, b, 3 * L, s);
+    ec_add<N, K>(acc, acc, s, f);
+    ec_add<N, K>(tot, tot, acc, f);
   }
-  uint32_t* o = out + t * 3 * L;
-  store_elem<N>(o, tot.x);
-  store_elem<N>(o + L, tot.y);
-  store_elem<N>(o + 2 * L, tot.z);
-}
-
-template <int N>
-static int resident_threads() {
-  int device = 0, sms = 0, blocks = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, msm_buckets_kernel<N>, kMsmThreads, 0);
-  if (e != cudaSuccess) return -(int)e;
-  return sms * blocks * kMsmThreads;
+  // tot = sum_b (b - lo + 1) S_b; add lo * acc, most significant bit first
+  if (lo > 0) {
+    PointN<N> off = acc;
+    for (int bit = 30 - __clz(lo); bit >= 0; --bit) {
+      ec_add<N, K>(off, off, off, f);
+      if ((lo >> bit) & 1) ec_add<N, K>(off, off, acc, f);
+    }
+    ec_add<N, K>(tot, tot, off, f);
+  }
+  store_point_row<N>(out + t * 3 * L, tot);
 }
 
 }  // namespace tzk
 
+// (L, 3b) -> the kernel instantiation: BN254 G1 (L = 16, 3b = 9), BLS12-381 G1 (L = 24, 3b = 12)
+#define TZK_MSM_DISPATCH(L, b3, KERNEL, ...)                         \
+  if ((L) == 16 && (b3) == 9) {                                      \
+    KERNEL<8, 9><<<(unsigned)blocks, threads_per_block, 0, s>>>(__VA_ARGS__); \
+  } else if ((L) == 24 && (b3) == 12) {                              \
+    KERNEL<12, 12><<<(unsigned)blocks, threads_per_block, 0, s>>>(__VA_ARGS__); \
+  } else {                                                           \
+    return (int)cudaErrorInvalidValue;                               \
+  }
+
 extern "C" {
 
-// px, py, pz: [n, L] int32 16-bit limbs (Montgomery projective); codes: [W, n]
-// bytes; b3, one: [L] limbs; buckets: [W, lanes, 16, 3, L/2] words (written).
-int tzk_msm_buckets(const void* px, const void* py, const void* pz, const void* codes, const void* b3,
-                    const void* one, void* buckets, int64_t n, int W, int lanes, int L, const uint32_t* p32,
-                    uint32_t n0inv, void* stream) {
+// px, py, pz: coordinate rows of 16-bit limbs (Montgomery projective), row i
+// at p* + i * stride words; entries: [E] int32 (index | sign << 31) or null
+// (entry k is row k); units: [n_units, 2] int32 (start, count) into the
+// entries; one: [L] limbs; out: [n_units, 3, L] int32 limbs (written).
+int tzk_msm_buckets(const void* px, const void* py, const void* pz, int64_t stride, const void* entries,
+                    const void* units, const void* one, void* out, int64_t n_units, int L, int b3,
+                    const uint32_t* p32, uint32_t n0inv, void* stream) {
   using namespace tzk;
   const FieldParams f = make_params(p32, L / 2, n0inv);
-  const int64_t threads = (int64_t)W * lanes;
-  const int64_t blocks = (threads + kMsmThreads - 1) / kMsmThreads;
+  const int threads_per_block = kUnitThreads;
+  const int64_t blocks = (n_units + threads_per_block - 1) / threads_per_block;
   if (blocks <= 0 || blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* x = static_cast<const uint32_t*>(px);
-  const auto* y = static_cast<const uint32_t*>(py);
-  const auto* z = static_cast<const uint32_t*>(pz);
-  const auto* c = static_cast<const uint8_t*>(codes);
-  const auto* pb3 = static_cast<const uint32_t*>(b3);
-  const auto* pone = static_cast<const uint32_t*>(one);
-  auto* bk = static_cast<uint32_t*>(buckets);
-  switch (L) {
-    case 16:
-      msm_buckets_kernel<8><<<(unsigned)blocks, kMsmThreads, 0, s>>>(x, y, z, c, pb3, pone, bk, n, threads, lanes, f);
-      break;
-    case 24:
-      msm_buckets_kernel<12><<<(unsigned)blocks, kMsmThreads, 0, s>>>(x, y, z, c, pb3, pone, bk, n, threads, lanes, f);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  TZK_MSM_DISPATCH(L, b3, msm_units_kernel, static_cast<const uint32_t*>(px), static_cast<const uint32_t*>(py),
+                   static_cast<const uint32_t*>(pz), stride, static_cast<const int32_t*>(entries),
+                   static_cast<const int32_t*>(units), static_cast<const uint32_t*>(one),
+                   static_cast<uint32_t*>(out), n_units, f)
   return (int)cudaGetLastError();
 }
 
-// buckets: [threads, 16, 3, L/2] words; out: [threads, 3, L] int32 16-bit limbs.
-int tzk_msm_bucket_reduce(const void* buckets, const void* b3, const void* one, void* out, int64_t threads, int L,
+// buckets: [W, B, 3, L] int32 limbs; out: [W, S, 3, L] with S = ceil(B / m),
+// out[w, j] = sum over b in [j m, min((j + 1) m, B)) of (b + 1) buckets[w, b].
+int tzk_msm_bucket_reduce(const void* buckets, void* out, int W, int B, int m, int L, int b3,
                           const uint32_t* p32, uint32_t n0inv, void* stream) {
   using namespace tzk;
+  if (W < 1 || B < 1 || m < 1) return (int)cudaErrorInvalidValue;
   const FieldParams f = make_params(p32, L / 2, n0inv);
-  const int64_t blocks = (threads + kMsmThreads - 1) / kMsmThreads;
-  if (blocks <= 0 || blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidConfiguration;
+  const int S = (B + m - 1) / m;
+  const int64_t threads = (int64_t)W * S;
+  const int threads_per_block = kReduceThreads;
+  const int64_t blocks = (threads + threads_per_block - 1) / threads_per_block;
+  if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* bk = static_cast<const uint32_t*>(buckets);
-  const auto* pb3 = static_cast<const uint32_t*>(b3);
-  const auto* pone = static_cast<const uint32_t*>(one);
-  auto* o = static_cast<uint32_t*>(out);
-  switch (L) {
-    case 16:
-      msm_bucket_reduce_kernel<8><<<(unsigned)blocks, kMsmThreads, 0, s>>>(bk, pb3, pone, o, threads, f);
-      break;
-    case 24:
-      msm_bucket_reduce_kernel<12><<<(unsigned)blocks, kMsmThreads, 0, s>>>(bk, pb3, pone, o, threads, f);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  TZK_MSM_DISPATCH(L, b3, msm_reduce_kernel, static_cast<const uint32_t*>(buckets), static_cast<uint32_t*>(out),
+                   threads, B, m, S, f)
   return (int)cudaGetLastError();
-}
-
-// Threads of tzk_msm_buckets that the current card keeps resident at once
-// (SMs x blocks per SM x threads per block) for limb count L; a negative
-// value is minus a cudaError_t.
-int tzk_msm_resident_threads(int L) {
-  switch (L) {
-    case 16:
-      return tzk::resident_threads<8>();
-    case 24:
-      return tzk::resident_threads<12>();
-    default:
-      return -(int)cudaErrorInvalidValue;
-  }
 }
 
 }  // extern "C"

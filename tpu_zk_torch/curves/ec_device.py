@@ -12,8 +12,9 @@ and inside the MSM bucket kernels (``csrc/ec.cuh``).
 
 MSM here is the double-and-add one: a conditional complete add and a
 doubling per scalar bit across all N points, then a log-depth pairwise tree.
-Scalars arrive as *plain* (non-Montgomery) limb tensors.  Large MSMs go
-through :mod:`.msm_pippenger`.
+Scalars arrive as *plain* (non-Montgomery) limb tensors.  The port's MSMs go
+through :mod:`.msm_pippenger` at every size; this one is the tests' and
+``chip_smoke.py``'s oracle.
 """
 
 from __future__ import annotations

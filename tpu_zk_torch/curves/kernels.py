@@ -1,22 +1,30 @@
 """The MSM bucket kernels (K4): their wrappers and plain versions.
 
-K4a ``msm_buckets``: Pippenger bucket accumulation for every window at once.
-    Replaces ``tpu_zk/curves/ec_pallas.py:114 msm_buckets_pallas`` and the
-    accumulation stage of ``:273 msm_buckets13_pallas`` (whose packed signed
-    base-32 codes it takes).  Lane s of window w holds, for each bucket b,
-    the sum of +-P_i over the points i = s, s + P, s + 2P, ... whose window-w
-    code has idx = b and skip = 0.
-K4b ``msm_bucket_reduce``: each (window, lane)'s weighted bucket total
-    sum_b (b+1) S_b by running suffix sums.  Replaces the tail of
-    ``msm_buckets13_pallas`` (``ec_pallas.py:239-269``).
+They replace ``tpu_zk/curves/ec_pallas.py:114 msm_buckets_pallas`` and
+``:273 msm_buckets13_pallas``, whose bucket table of 16 buckets (signed
+base-32 digits) lives in VMEM across a sequential grid, with the per-lane
+weighted bucket total of ``:239-269`` as its tail.  Here the windows are
+signed c-bit digits, c up to 16, and the caller
+(:mod:`tpu_zk_torch.curves.msm_pippenger`) sorts each window's points by
+bucket and cuts every bucket's list into *units* of at most R entries:
 
-Both are bound by operations, not bytes: a complete add is 14 Montgomery
-products (12 of them needed: the two by b3 could be a few additions) of
-2 (L/2)^2 wide multiply-adds each, ``(uint64_t)a * b + c`` on 32-bit limbs,
-for ~3 L 4-byte words of point read once per window.  What the design does about it is in
-``csrc/msm.cu``: one thread per (window, lane) with its buckets in a scratch
-tensor that is also the output, every thread of one full wave of the card
-equally long at work, no atomics and no sort.
+K4a ``msm_buckets``: one thread a unit sums its entries into one partial
+    point.  An entry is a point index with the sign in bit 31 (Y negated);
+    with no entry list, entry k of a unit is row k of the points, which is
+    how the same kernel sums a bucket's partials in a later pass, and K4b's
+    segment totals into window sums.
+K4b ``msm_bucket_reduce``: one thread per (window, segment of m buckets)
+    computes sum_b (b+1) S_b over the segment: running sums acc += S_b;
+    tot += acc from the top bucket down, then the segment's offset times acc
+    by double-and-add.
+
+Both are bound by operations, not bytes: a complete add is 12 Montgomery
+products (the two by 3b are additions in ``csrc/ec.cuh``) of 2 (L/2)^2 wide
+multiply-adds each, ``(uint64_t)a * b + c`` on 32-bit limbs, against 4 + 3 L
+4-byte words read an entry.  What the design does about it is in
+``csrc/msm.cu``: every thread of a launch does about R adds in a serial
+chain whatever the scalars, the next entry's loads go out before the current
+add, and nothing is atomic, so the result does not depend on scheduling.
 
 Each wrapper runs its plain PyTorch version when its tensors lie on the CPU,
 and for CUDA tensors launches the kernel (built by
@@ -24,19 +32,13 @@ and for CUDA tensors launches the kernel (built by
 its kernel launches in its ``launches`` attribute.  The kernel and the plain
 version add in different orders, so their (X : Y : Z) differ while the point
 is the same: compare them with :func:`tpu_zk_torch.curves.ec_device.ec_equal`,
-never limb by limb.
-
-A code is one byte, ``idx | sign << 5 | skip << 6`` with idx = |digit| - 1
-below 16 (:func:`tpu_zk_torch.curves.msm_pippenger.signed_digit_codes`).
-Buckets cross between K4a and K4b as ``[W, P, 16, 3, L/2]`` int32 words, each
-holding two 16-bit limbs (the kernels' own 32-bit limbs);
-:func:`unpack_buckets` turns them into limb coordinates.
+never limb by limb.  Points cross as rows ``[..., 3, L]`` of int32 16-bit
+limbs (X, Y, Z; :func:`rows_to_points` gives the coordinate views).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -45,27 +47,22 @@ from ..fields import arith
 from ..fields.kernels import _check_limbs, _launch_args, _on_cpu, _ptr, _raise_on, _stream
 from . import ec_device
 from .ec_device import Point
+from .params import CURVES
 
-BUCKETS = 16
-CPU_LANES = 2  # the plain version's default P: enough to cross lanes and leave a ragged tail
+SIGN = -(1 << 31)  # bit 31 of an entry: the point enters negated
 
-
-# ---------------------------------------------------------------------------
-# bucket words <-> limb coordinates
-# ---------------------------------------------------------------------------
+# the curve constant 3b by the curve's base field: the kernels multiply by it with additions
+_B3 = {c["fq"]: 3 * c["b"] for c in CURVES.values()}
 
 
-def unpack_buckets(words: torch.Tensor) -> Point:
-    """[..., 3, L/2] int32 words -> ([..., L],)*3 16-bit limbs."""
-    limbs = torch.stack([words & 0xFFFF, (words >> 16) & 0xFFFF], dim=-1).flatten(-2)
-    return tuple(limbs[..., c, :] for c in range(3))
+def rows_to_points(rows: torch.Tensor) -> Point:
+    """[..., 3, L] rows -> (X, Y, Z) views [..., L]."""
+    return tuple(rows[..., c, :] for c in range(3))
 
 
-def pack_buckets(P: Point) -> torch.Tensor:
-    """([..., L],)*3 16-bit limbs -> [..., 3, L/2] int32 words."""
-    limbs = torch.stack(P, dim=-2).to(torch.int64)
-    words = limbs[..., 0::2] | (limbs[..., 1::2] << 16)
-    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+def points_to_rows(P: Point) -> torch.Tensor:
+    """(X, Y, Z) [..., L] -> [..., 3, L] rows."""
+    return torch.stack(P, dim=-2)
 
 
 # ---------------------------------------------------------------------------
@@ -73,39 +70,50 @@ def pack_buckets(P: Point) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def msm_buckets_plain(ctx: arith.FieldCtx, b3: torch.Tensor, points: Point, codes: torch.Tensor, lanes: int) -> Point:
-    """points ([n, L],)*3, codes [W, n] uint8 -> bucket points ([W, lanes, 16, L],)*3.
+def msm_buckets_plain(ctx: arith.FieldCtx, b3: torch.Tensor, points: Point, entries: torch.Tensor | None,
+                      units: torch.Tensor) -> torch.Tensor:
+    """points ([n, L],)*3, entries [E] int32 or None, units [U, 2] int32
+    (start, count) -> [U, 3, L]: each unit's entries gathered (Y negated
+    where the sign bit is set; identity past its count) and summed by a
+    pairwise tree."""
+    U = units.shape[0]
+    device = units.device
+    width = int(units[:, 1].max()) if U else 0
+    if width == 0:
+        return points_to_rows(ec_device.ec_identity(ctx, (U,), device=device))
+    k = torch.arange(width, device=device)
+    live = k < units[:, 1:2]
+    pos = torch.where(live, units[:, :1].to(torch.int64) + k, 0)  # [U, width]
+    if entries is None:
+        rows, negative = pos, torch.zeros_like(live)
+    else:
+        e = entries[pos]
+        rows, negative = (e & 0x7FFFFFFF).to(torch.int64), e < 0
+    X, Y, Z = (c[rows] for c in points)
+    Y = torch.where(negative[..., None], arith.neg(ctx, Y), Y)
+    slots = ec_device.ec_select(live, (X, Y, Z), ec_device.ec_identity(ctx, device=device))
+    return points_to_rows(ec_device.tree_reduce(ctx, b3, slots, dim=1))
 
-    A masked select of every point into its (window, bucket) slot, identity
-    elsewhere, then a pairwise tree over each lane's points.
-    """
-    n = points[0].shape[0]
-    W = codes.shape[0]
-    device = codes.device
-    steps = max(-(-n // lanes), 1)
-    pad = steps * lanes - n
-    ident = ec_device.ec_identity(ctx, (pad,), device=device)
-    X, Y, Z = (torch.cat([c, i]).view(steps, lanes, ctx.L) for c, i in zip(points, ident))
-    codes = torch.cat([codes, torch.full((W, pad), 64, dtype=torch.uint8, device=device)], dim=1)
-    codes = codes.view(W, steps, lanes).to(torch.int32)
-    idx, negative, live = codes & 15, (codes & 32) != 0, (codes & 64) == 0
-    Yw = torch.where(negative[..., None], arith.neg(ctx, Y), Y)  # [W, steps, lanes, L]
-    mask = (live[:, None] & (idx[:, None] == torch.arange(BUCKETS, device=device).view(1, BUCKETS, 1, 1)))[..., None]
-    iX, iY, iZ = ec_device.ec_identity(ctx, device=device)
-    slots = (torch.where(mask, X, iX), torch.where(mask, Yw[:, None], iY), torch.where(mask, Z, iZ))
-    sums = ec_device.tree_reduce(ctx, b3, slots, dim=2)  # [W, 16, lanes, L]
-    return tuple(c.transpose(1, 2).contiguous() for c in sums)
 
-
-def msm_bucket_reduce_plain(ctx: arith.FieldCtx, b3: torch.Tensor, buckets: Point) -> Point:
-    """bucket points ([W, lanes, 16, L],)*3 -> ([W, lanes, L],)*3 holding
-    sum_b (b+1) S_b, by the running suffix sums acc += S_b; tot += acc."""
-    shape = buckets[0].shape[:-2]
-    acc = tot = ec_device.ec_identity(ctx, shape, device=buckets[0].device)
-    for b in reversed(range(BUCKETS)):
-        acc = ec_device.ec_add(ctx, b3, acc, tuple(c[..., b, :] for c in buckets))
+def msm_bucket_reduce_plain(ctx: arith.FieldCtx, b3: torch.Tensor, buckets: torch.Tensor, m: int) -> torch.Tensor:
+    """buckets [W, B, 3, L] -> [W, S, 3, L], S = ceil(B/m): segment j's
+    sum_b (b+1) S_b over b in [j m, min((j+1) m, B)), by the running sums
+    acc += S_b; tot += acc over each segment (identity past B), then
+    tot + (j m) acc by double-and-add over the bits of j m."""
+    W, B = buckets.shape[:2]
+    S = -(-B // m)
+    pad = ec_device.ec_identity(ctx, (W, S * m - B), device=buckets.device)
+    padded = torch.cat([buckets, points_to_rows(pad)], dim=1).view(W, S, m, 3, ctx.L)
+    acc = tot = ec_device.ec_identity(ctx, (W, S), device=buckets.device)
+    for t in reversed(range(m)):
+        acc = ec_device.ec_add(ctx, b3, acc, rows_to_points(padded[:, :, t]))
         tot = ec_device.ec_add(ctx, b3, tot, acc)
-    return tot
+    offsets = torch.arange(S, device=buckets.device) * m
+    off = ec_device.ec_identity(ctx, (W, S), device=buckets.device)
+    for bit in reversed(range(((S - 1) * m).bit_length())):
+        off = ec_device.ec_add(ctx, b3, off, off)
+        off = ec_device.ec_select(((offsets >> bit) & 1 == 1).expand(W, S), ec_device.ec_add(ctx, b3, off, acc), off)
+    return points_to_rows(ec_device.ec_add(ctx, b3, tot, off))
 
 
 # ---------------------------------------------------------------------------
@@ -113,77 +121,74 @@ def msm_bucket_reduce_plain(ctx: arith.FieldCtx, b3: torch.Tensor, buckets: Poin
 # ---------------------------------------------------------------------------
 
 
-@functools.cache
-def _resident_threads(L: int) -> int:
-    n = _build.kernel_library().tzk_msm_resident_threads(ctypes.c_int(L))
-    if n <= 0:
-        raise RuntimeError(f"msm_buckets: no resident threads for L={L} (cudaError_t {-n})")
-    return n
+def _b3_int(ctx: arith.FieldCtx) -> int:
+    if ctx.name not in _B3:
+        raise ValueError(f"{ctx.name} is not the base field of a supported curve")
+    return _B3[ctx.name]
 
 
-def default_lanes(ctx: arith.FieldCtx, n: int, W: int, device) -> int:
-    """P for an MSM of n points and W windows: on the card, as many lanes
-    (a multiple of 32) as make W * P threads one full wave, fewer when n has
-    fewer points than that; on the CPU a small constant."""
-    if torch.device(device).type == "cpu":
-        return CPU_LANES
-    wave = max(_resident_threads(ctx.L) // W // 32 * 32, 32)
-    return min(wave, max(-(-n // 32) * 32, 32))
-
-
-def msm_buckets(ctx: arith.FieldCtx, b3: torch.Tensor, points: Point, codes: torch.Tensor, lanes: int) -> torch.Tensor:
-    """K4a: points ([n, L],)*3 Montgomery projective, codes [W, n] uint8 ->
-    bucket words [W, lanes, 16, 3, L/2] (see :func:`unpack_buckets`)."""
-    for name, c in zip("XYZ", points):
-        _check_limbs(name, c, ctx.L)
+def msm_buckets(ctx: arith.FieldCtx, b3: torch.Tensor, points: Point, entries: torch.Tensor | None,
+                units: torch.Tensor) -> torch.Tensor:
+    """K4a: points ([n, L],)*3 Montgomery projective (rows of the three may
+    lie any equal number of words apart), entries [E] int32 (point index |
+    sign bit) or None (entry k is row k), units [U, 2] int32 (start, count)
+    into the entries -> [U, 3, L], each unit's sum."""
     _check_limbs("b3", b3, ctx.L)
+    for name, c in zip("XYZ", points):
+        if c.dtype != torch.int32 or c.dim() != 2 or c.shape != points[0].shape or c.shape[1] != ctx.L:
+            raise ValueError(f"msm_buckets: {name} must be int32 [n, {ctx.L}] like X, got {c.dtype} {tuple(c.shape)}")
     n = points[0].shape[0]
-    if any(c.shape != (n, ctx.L) for c in points) or b3.dim() != 1:
-        raise ValueError(f"msm_buckets: point coordinates {[tuple(c.shape) for c in points]}, b3 {tuple(b3.shape)}")
-    if codes.dtype != torch.uint8 or codes.dim() != 2 or codes.shape[1] != n or not codes.is_contiguous():
-        raise ValueError(f"msm_buckets: codes must be contiguous uint8 [W, {n}], got {codes.dtype} {tuple(codes.shape)}")
-    W = codes.shape[0]
-    if lanes < 1 or W < 1:
-        raise ValueError(f"msm_buckets: lanes {lanes}, windows {W}")
-    if _on_cpu(*points, codes, b3):
-        return pack_buckets(msm_buckets_plain(ctx, b3, points, codes, lanes))
-    buckets = torch.empty((W, lanes, BUCKETS, 3, ctx.L // 2), dtype=torch.int32, device=codes.device)
+    stride = points[0].stride(0) if n > 1 else ctx.L  # a single row's stride is never used
+    for name, c in zip("XYZ", points):
+        if c.stride(1) != 1 or (n > 1 and c.stride(0) != stride):
+            raise ValueError(f"msm_buckets: coordinate rows must be contiguous and equally strided, {name} {c.stride()}")
+    if units.dtype != torch.int32 or units.dim() != 2 or units.shape[1] != 2 or not units.is_contiguous():
+        raise ValueError(f"msm_buckets: units must be contiguous int32 [U, 2], got {units.dtype} {tuple(units.shape)}")
+    if entries is not None and (entries.dtype != torch.int32 or entries.dim() != 1 or not entries.is_contiguous()):
+        raise ValueError(f"msm_buckets: entries must be contiguous int32 [E], got {entries.dtype} {tuple(entries.shape)}")
+    if _on_cpu(*points, units, b3, *([] if entries is None else [entries])):
+        return msm_buckets_plain(ctx, b3, points, entries, units)
+    U = units.shape[0]
+    out = torch.empty((U, 3, ctx.L), dtype=torch.int32, device=units.device)
+    if U == 0:
+        return out
     p32, n0inv = _launch_args(ctx)
     rc = _build.kernel_library().tzk_msm_buckets(
-        _ptr(points[0]), _ptr(points[1]), _ptr(points[2]), ctypes.c_void_p(codes.data_ptr()), _ptr(b3),
-        _ptr(ctx.one_mont(codes.device)), _ptr(buckets), ctypes.c_int64(n), ctypes.c_int(W), ctypes.c_int(lanes),
-        ctypes.c_int(ctx.L), p32, n0inv, _stream(),
+        _ptr(points[0]), _ptr(points[1]), _ptr(points[2]), ctypes.c_int64(stride),
+        None if entries is None else ctypes.c_void_p(entries.data_ptr()), ctypes.c_void_p(units.data_ptr()),
+        _ptr(ctx.one_mont(units.device)), _ptr(out), ctypes.c_int64(U), ctypes.c_int(ctx.L),
+        ctypes.c_int(_b3_int(ctx)), p32, n0inv, _stream(),
     )
     _raise_on(rc, "msm_buckets")
     msm_buckets.launches += 1
-    return buckets
+    return out
 
 
 msm_buckets.launches = 0
 
 
-def msm_bucket_reduce(ctx: arith.FieldCtx, b3: torch.Tensor, buckets: torch.Tensor) -> Point:
-    """K4b: bucket words [W, lanes, 16, 3, L/2] -> ([W, lanes, L],)*3 limbs,
-    each (window, lane)'s sum_b (b+1) S_b."""
+def msm_bucket_reduce(ctx: arith.FieldCtx, b3: torch.Tensor, buckets: torch.Tensor, m: int) -> torch.Tensor:
+    """K4b: bucket sums [W, B, 3, L] -> [W, ceil(B/m), 3, L], each segment
+    of m buckets' sum_b (b+1) S_b (see :func:`msm_bucket_reduce_plain`)."""
     _check_limbs("b3", b3, ctx.L)
-    if (buckets.dtype != torch.int32 or buckets.dim() != 5 or buckets.shape[2:] != (BUCKETS, 3, ctx.L // 2)
-            or not buckets.is_contiguous()):
-        raise ValueError(f"msm_bucket_reduce: buckets must be contiguous int32 [W, lanes, {BUCKETS}, 3, {ctx.L // 2}], "
+    if (buckets.dtype != torch.int32 or buckets.dim() != 4 or buckets.shape[2:] != (3, ctx.L)
+            or not buckets.is_contiguous() or 0 in buckets.shape):
+        raise ValueError(f"msm_bucket_reduce: buckets must be contiguous int32 [W >= 1, B >= 1, 3, {ctx.L}], "
                          f"got {buckets.dtype} {tuple(buckets.shape)}")
-    W, lanes = buckets.shape[:2]
+    if m < 1:
+        raise ValueError(f"msm_bucket_reduce: segment of {m} buckets")
     if _on_cpu(buckets, b3):
-        return msm_bucket_reduce_plain(ctx, b3, unpack_buckets(buckets))
-    out = torch.empty((W, lanes, 3, ctx.L), dtype=torch.int32, device=buckets.device)
-    if W * lanes == 0:
-        return tuple(out[:, :, c] for c in range(3))
+        return msm_bucket_reduce_plain(ctx, b3, buckets, m)
+    W, B = buckets.shape[:2]
+    out = torch.empty((W, -(-B // m), 3, ctx.L), dtype=torch.int32, device=buckets.device)
     p32, n0inv = _launch_args(ctx)
     rc = _build.kernel_library().tzk_msm_bucket_reduce(
-        _ptr(buckets), _ptr(b3), _ptr(ctx.one_mont(buckets.device)), _ptr(out), ctypes.c_int64(W * lanes),
-        ctypes.c_int(ctx.L), p32, n0inv, _stream(),
+        _ptr(buckets), _ptr(out), ctypes.c_int(W), ctypes.c_int(B), ctypes.c_int(m), ctypes.c_int(ctx.L),
+        ctypes.c_int(_b3_int(ctx)), p32, n0inv, _stream(),
     )
     _raise_on(rc, "msm_bucket_reduce")
     msm_bucket_reduce.launches += 1
-    return tuple(out[:, :, c] for c in range(3))
+    return out
 
 
 msm_bucket_reduce.launches = 0

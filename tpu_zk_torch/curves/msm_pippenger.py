@@ -1,31 +1,34 @@
-"""Pippenger (bucket-method) MSM: signed base-32 digits, every window in one
-kernel launch.  Counterpart of :mod:`tpu_zk.curves.msm_pippenger`.
+"""Pippenger (bucket-method) MSM at every size: signed c-bit windows, points
+sorted into buckets, balanced units.  Counterpart of
+:mod:`tpu_zk.curves.msm_pippenger`.
 
-Signed base-32 digits in [-16, 16] need only 16 buckets for their magnitudes
-(a negative digit is one conditional Y negate in the kernel), so a 255-bit
-scalar takes 52 + 1 windows.  The stages:
+The window size follows the number of points N: :func:`window_bits` takes
+the c in [2, 16] that minimizes W (N + 2^c), W = ceil((bits + 1) / c)
+windows of signed digits in (-2^(c-1), 2^(c-1)] and 2^(c-1) buckets each
+(c = 16 from about 2^17 points up, 17 windows of which the last holds only
+the carry of scalars of 256 bits).  The stages:
 
-1. :func:`signed_digit_codes`: one byte per (window, point), plain torch;
-2. K4a (:func:`.kernels.msm_buckets`): each of P lanes per window sums its
-   points into 16 buckets;
-3. K4b (:func:`.kernels.msm_bucket_reduce`): each lane's weighted bucket
-   total sum_b (b+1) S_b;
-4. a pairwise tree over the P lanes of every window (:func:`ec_device.ec_add`,
-   K1/K3 launches), log2(P) levels over [W, P/2^k] points;
-5. the window combine sum_w 32^w S_w, on the host: the W = 53 window sums are
-   copied over and combined by Horner's rule on Python ints
-   (:func:`host_ec.ec_add`, ~320 additions, a few milliseconds).  On the
-   device the same combine is ~320 *sequential* complete adds of ~40 small
-   launches each; the group element is the same either way.
+1. :func:`signed_digits`: every window's digit of every point at once, plain
+   torch: the scalar plus (2^(c-1) - 1) in every window, cut into c-bit
+   pieces, less 2^(c-1) - 1;
+2. :func:`_bucket_entries`: a stable sort of the (window, bucket) keys lists
+   each bucket's point indices, with the sign in bit 31 of each entry (the
+   glue the TPU does not need: its kernels route by one-hot masks);
+3. K4a (:func:`.kernels.msm_buckets`) over the unit tables of
+   :func:`_unit_table`: each bucket's list cut into units of at most
+   ``UNIT`` entries, one partial point each; a bucket with several partials
+   takes another pass over them, until each has one;
+4. K4b (:func:`.kernels.msm_bucket_reduce`): for each window and segment of
+   ``SEGMENT`` buckets, sum_b (b+1) S_b over the segment;
+5. :func:`_window_sums`: K4a passes again, over each window's segment totals;
+6. the window combine sum_w 2^(c w) S_w on the host, by Horner's rule on
+   Python ints (:func:`host_ec.ec_add`, about 280 additions).
 
-``tpu_zk``'s version rebases points to radix-2^13 limbs and pads N to the
-kernel's tile; both answer the TPU's vector unit and tiling and have no
-counterpart here: the kernel works on the 32-bit limbs of the storage format
-and masks its ragged tail itself.
-
-Below ``BUCKET_THRESHOLD`` points the bucket machinery does not pay and the
-double-and-add :func:`ec_device.msm` runs instead; it gives the same group
-element.
+Every MSM of one point or more takes this path; N = 0 gives the identity.
+``tpu_zk``'s version rebases points to radix-2^13 limbs, pads N to the
+kernel's tile and runs double-and-add below 2048 points; the first two
+answer the TPU's vector unit and tiling, the last its compile per shape, and
+none has a counterpart here.
 """
 
 from __future__ import annotations
@@ -34,11 +37,25 @@ import torch
 
 from ..fields.arith import FieldCtx
 from . import host_ec
-from .ec_device import Point, msm, tree_reduce
-from .kernels import default_lanes, msm_bucket_reduce, msm_buckets
+from .ec_device import Point, ec_identity
+from .kernels import SIGN, msm_bucket_reduce, msm_buckets, rows_to_points
 
-WINDOW_BITS = 5  # signed base-32 digits
-BUCKET_THRESHOLD = 2048  # points from which the bucket method runs
+MAX_WINDOW_BITS = 16
+# R and m: 128 and 32 are faster for a lone 2^24 MSM on an H100, but slower over the
+# depth-24 succinct prove's 49 MSMs of 2^24 points down to 1 (PERF.md)
+UNIT = 32  # entries a K4a thread sums (R)
+SEGMENT = 16  # buckets a K4b thread reduces (m)
+
+
+def window_count(bits: int, c: int) -> int:
+    """Windows of signed c-bit digits that a scalar below 2^bits needs."""
+    return -(-(bits + 1) // c)
+
+
+def window_bits(n: int, bits: int = 256) -> int:
+    """The c in [2, MAX_WINDOW_BITS] that minimizes W (n + 2^c): n adds a
+    window into buckets, about two a bucket to weigh them."""
+    return min(range(2, MAX_WINDOW_BITS + 1), key=lambda c: window_count(bits, c) * (n + (1 << c)))
 
 
 def _digits(scalar_limbs: torch.Tensor, c: int) -> torch.Tensor:
@@ -49,71 +66,127 @@ def _digits(scalar_limbs: torch.Tensor, c: int) -> torch.Tensor:
     return torch.stack(parts, dim=-1).reshape(scalar_limbs.shape[0], -1)
 
 
-def _codes_by_window(scalar_limbs: torch.Tensor) -> torch.Tensor:
-    """[N, Lr] plain 16-bit limbs -> [D, N] uint8 codes, window-major (the
-    layout K4a reads).  One window at a time, so nothing of size D x N
-    exists besides the result."""
-    n, lr = scalar_limbs.shape
-    d_count = -(-16 * lr // WINDOW_BITS)
-    codes = torch.empty((d_count + 1, n), dtype=torch.uint8, device=scalar_limbs.device)
-    carry = torch.zeros((n,), dtype=torch.int32, device=scalar_limbs.device)
-    for i in range(d_count):
-        j, r = divmod(WINDOW_BITS * i, 16)
-        v = scalar_limbs[:, j] >> r  # raw base-32 digit, crossing limb boundaries
-        if r > 16 - WINDOW_BITS and j + 1 < lr:
-            v = v | (scalar_limbs[:, j + 1] << (16 - r))
-        v = (v & 31) + carry  # in [0, 32]
-        carry = (v > 16).to(torch.int32)
-        mag = torch.where(v > 16, 32 - v, v)  # |d| in [0, 16]
-        codes[i] = ((mag - 1).clamp(min=0) | (carry << 5) | ((mag == 0).to(torch.int32) << 6)).to(torch.uint8)
-    codes[d_count] = torch.where(carry == 1, 0, 64).to(torch.uint8)  # final carry window: digit in {0, 1}
-    return codes
+def signed_digits(scalar_limbs: torch.Tensor, c: int) -> torch.Tensor:
+    """[N, Lr] plain 16-bit limbs -> [W, N] int32 signed digits d in
+    (-2^(c-1), 2^(c-1)] with sum_w d_w 2^(c w) == scalar, window-major.
 
-
-def signed_digit_codes(scalar_limbs: torch.Tensor) -> torch.Tensor:
-    """[N, Lr] plain 16-bit limbs -> [N, D] packed signed base-32 digits.
-
-    Each code packs ``(|d|-1) | sign << 5 | skip << 6`` for digits
-    d in [-16, 16] with sum_i d_i * 32^i == scalar; skip marks d == 0.
-    D = ceil(16*Lr / 5) + 1 (one extra window for the final carry).
+    These are the digits of the carry recoding v = raw + carry, d = v or
+    v - 2^c when v > 2^(c-1) (``tpu_zk``'s at c = 5): adding h = 2^(c-1) - 1
+    to every window and subtracting it from every c-bit piece of the sum
+    gives the same unique digits, with no carry from window to window.
     """
-    return _codes_by_window(scalar_limbs).T.to(torch.int32)
+    n, lr = scalar_limbs.shape
+    device = scalar_limbs.device
+    W = window_count(16 * lr, c)
+    bias = sum(((1 << (c - 1)) - 1) << (c * w) for w in range(W))
+    width = -(-c * W // 16) + 1  # limbs of the sum, and one above for the last window's two-limb read
+    u = torch.zeros((width, n), dtype=torch.int32, device=device)
+    u[:lr] = scalar_limbs.T
+    u += torch.tensor([(bias >> (16 * k)) & 0xFFFF for k in range(width)], dtype=torch.int32, device=device)[:, None]
+    carry = torch.zeros((n,), dtype=torch.int32, device=device)
+    for k in range(width):  # each limb below 2^17: one carry bit
+        v = u[k] + carry
+        u[k] = v & 0xFFFF
+        carry = v >> 16
+    # window w: the c bits of u from bit c w, across limbs j and j + 1
+    offset = c * torch.arange(W, device=device)
+    j, r = offset // 16, (offset % 16).to(torch.int32)[:, None]
+    hi_mask = (1 << (c - 16 + r).clamp(min=0)) - 1  # bits of window w in limb j + 1
+    raw = (u[j] >> r) | ((u[j + 1] & hi_mask) << (16 - r))
+    return (raw & ((1 << c) - 1)) - ((1 << (c - 1)) - 1)
 
 
-def _combine_windows(ctx: FieldCtx, b3: torch.Tensor, windows: Point) -> Point:
-    """([W, L],)*3 window sums -> sum_w 32^w S_w as an [L]x3 point on the
-    same device, by Horner's rule on host ints."""
+def _bucket_entries(digits: torch.Tensor, c: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """[W, N] signed digits -> (entries [W N] int32, counts [W B] int64).
+
+    Bucket (w, b) holds the points whose window-w digit is +-(b+1); its
+    entries are ``counts[w B + b]`` consecutive ones, buckets in order, each
+    a point index with SIGN set for a negative digit, by a stable sort (the
+    order does not depend on scheduling).  Entries past the last bucket's
+    are the zero digits'."""
+    W, n = digits.shape
+    if W * n >= 1 << 31:
+        raise ValueError(f"MSM of {n} points in {W} windows: entries and unit starts are int32")
+    B = 1 << (c - 1)
+    mag = digits.abs()
+    first = (torch.arange(W, device=digits.device, dtype=torch.int32) * B)[:, None]
+    keys = torch.where(mag > 0, first + mag - 1, W * B).view(-1)
+    sorted_keys, order = torch.sort(keys, stable=True)
+    del keys
+    bounds = torch.searchsorted(sorted_keys, torch.arange(W * B + 1, device=digits.device, dtype=torch.int32))
+    del sorted_keys
+    point = (order % n).to(torch.int32)
+    entries = torch.where(digits.view(-1)[order] < 0, point | SIGN, point)
+    return entries, bounds.diff()
+
+
+def _unit_table(counts: torch.Tensor, unit: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Groups of counts[g] consecutive rows (group g's after group g-1's) ->
+    (units [U, 2] int32 (start, count), units per group): each group cut
+    into runs of at most ``unit`` rows; an empty group gets one empty unit,
+    so a pass gives every group a row.  One synchronization (U)."""
+    per_group = ((counts + unit - 1) // unit).clamp(min=1)
+    ends = per_group.cumsum(0)
+    U = int(ends[-1])
+    group = torch.repeat_interleave(torch.arange(counts.shape[0], device=counts.device), per_group, output_size=U)
+    j = torch.arange(U, device=counts.device) - (ends - per_group)[group]
+    start = (counts.cumsum(0) - counts)[group] + j * unit
+    count = (counts[group] - j * unit).clamp(max=unit)
+    return torch.stack([start, count], dim=1).to(torch.int32), per_group
+
+
+def _sum_groups(ctx: FieldCtx, b3: torch.Tensor, points: Point, entries: torch.Tensor | None, counts: torch.Tensor,
+                unit: int = UNIT) -> torch.Tensor:
+    """Sum each group of ``counts[g]`` consecutive entries (rows of the
+    points when ``entries`` is None) -> [G, 3, L], by K4a passes: units of
+    at most ``unit``, then each group's partials again, until one is left."""
+    G = counts.shape[0]
+    while True:
+        units, counts = _unit_table(counts, unit)
+        rows = msm_buckets(ctx, b3, points, entries, units)
+        if rows.shape[0] == G:
+            return rows
+        points, entries = rows_to_points(rows), None
+
+
+def _window_sums(ctx: FieldCtx, b3: torch.Tensor, segments: torch.Tensor) -> torch.Tensor:
+    """K4b's segment totals [W, S, 3, L] -> each window's sum [W, 3, L]."""
+    W, S = segments.shape[:2]
+    counts = torch.full((W,), S, dtype=torch.int64, device=segments.device)
+    return _sum_groups(ctx, b3, rows_to_points(segments.view(W * S, 3, ctx.L)), None, counts)
+
+
+def _combine_windows(ctx: FieldCtx, b3: torch.Tensor, windows: torch.Tensor, c: int) -> Point:
+    """[W, 3, L] window sums -> sum_w 2^(c w) S_w as an [L]x3 point on the
+    same device, by Horner's rule on host ints (the sums cross in one copy)."""
     p = ctx.p
     b3_host = host_ec.Fp(p, ctx.to_ints(b3))
-    coords = [ctx.to_ints(c) for c in windows]
+    flat = ctx.to_ints(windows.reshape(-1, ctx.L))
     acc = (host_ec.Fp(p, 0), host_ec.Fp(p, 1), host_ec.Fp(p, 0))
-    for X, Y, Z in reversed(list(zip(*coords))):
-        for _ in range(WINDOW_BITS):
-            acc = host_ec.ec_add(acc, acc, b3_host)
+    for w in reversed(range(windows.shape[0])):
+        if acc[2].v:  # doubling the identity changes nothing
+            for _ in range(c):
+                acc = host_ec.ec_double(acc, b3_host)
+        X, Y, Z = flat[3 * w : 3 * w + 3]
         acc = host_ec.ec_add(acc, (host_ec.Fp(p, X), host_ec.Fp(p, Y), host_ec.Fp(p, Z)), b3_host)
-    return tuple(ctx.scalar(c.v, device=b3.device) for c in acc)
+    return tuple(ctx.scalar(v.v, device=b3.device) for v in acc)
 
 
-def msm_pippenger(ctx: FieldCtx, b3: torch.Tensor, inputs, lanes: int | None = None,
-                  threshold: int | None = None) -> Point:
+def msm_pippenger(ctx: FieldCtx, b3: torch.Tensor, inputs, c: int | None = None) -> Point:
     """inputs = (points ([N,L],)*3, scalar_limbs_plain [N,Lr]) -> single point.
 
-    ``threshold``: the number of points from which the bucket method runs
-    (default ``BUCKET_THRESHOLD``); ``lanes``: K4a's P (default
-    :func:`.kernels.default_lanes`).
-    """
+    ``c``: the window's bits (default :func:`window_bits` of N)."""
     points, scalar_limbs = inputs
-    N = points[0].shape[0]
-    if N < (BUCKET_THRESHOLD if threshold is None else threshold):
-        shifts = torch.arange(16, dtype=torch.int32, device=scalar_limbs.device)
-        bits = ((scalar_limbs[..., None] >> shifts) & 1).reshape(N, -1)
-        return msm(ctx, b3, points, bits)
-
-    codes = _codes_by_window(scalar_limbs)
-    points = tuple(c.contiguous() for c in points)
-    P = lanes or default_lanes(ctx, N, codes.shape[0], codes.device)
-    buckets = msm_buckets(ctx, b3, points, codes, P)
-    lane_sums = msm_bucket_reduce(ctx, b3, buckets)  # ([W, P, L],)*3
+    n = points[0].shape[0]
+    if n == 0:
+        return ec_identity(ctx, device=scalar_limbs.device)
+    c = c or window_bits(n, 16 * scalar_limbs.shape[1])
+    digits = signed_digits(scalar_limbs, c)
+    W, B = digits.shape[0], 1 << (c - 1)
+    entries, counts = _bucket_entries(digits, c)
+    del digits
+    buckets = _sum_groups(ctx, b3, tuple(t.contiguous() for t in points), entries, counts)  # [W B, 3, L]
+    del entries
+    segments = msm_bucket_reduce(ctx, b3, buckets.view(W, B, 3, ctx.L), min(SEGMENT, B))
     del buckets
-    return _combine_windows(ctx, b3, tree_reduce(ctx, b3, lane_sums, dim=1))
-
+    return _combine_windows(ctx, b3, _window_sums(ctx, b3, segments), c)

@@ -15,8 +15,8 @@ line per depth and writes all of them to ``--out``
 With ``--succinct`` (:func:`run_succinct`): the trusted setup, a warm-up
 ``prove_succinct`` that must verify, then one setup, one prove and one
 verify with the stage timers of ``SUCCINCT_STAGES`` added (commit, each
-open, the MSM's digits, K4a, K4b, lane tree and window combine, the
-double-and-add MSMs, the verifier's host points and pairing product), and
+open, the MSM's digits, sort, unit tables, K4a, K4b, window sums and
+window combine, the verifier's host points and pairing product), and
 beside the exclusive times the inclusive ones of the commit, the two opens,
 the layers and the circuit evaluation.
 
@@ -77,12 +77,13 @@ SUCCINCT_STAGES = STAGES + [
     (sparse, "_prove_layers", "prove: layers, rest"),
     (multilinear_kzg, "commit_to_polynomial", "commit, rest (from_mont)"),
     (multilinear_kzg, "open_and_prove", "open, rest (evaluate, quotients, folds)"),
-    (msm_pippenger, "_codes_by_window", "msm: signed digits"),
-    (msm_pippenger, "msm_buckets", "msm: K4a buckets"),
-    (msm_pippenger, "msm_bucket_reduce", "msm: K4b bucket reduce"),
-    (msm_pippenger, "tree_reduce", "msm: lane tree (K1, K3)"),
+    (msm_pippenger, "signed_digits", "msm: signed digits"),
+    (msm_pippenger, "_bucket_entries", "msm: sort into buckets"),
+    (msm_pippenger, "_unit_table", "msm: unit tables"),
+    (msm_pippenger, "msm_buckets", "msm: K4a unit sums"),
+    (msm_pippenger, "msm_bucket_reduce", "msm: K4b segment reduce"),
+    (msm_pippenger, "_window_sums", "msm: window sums, rest"),
     (msm_pippenger, "_combine_windows", "msm: window combine (host ints)"),
-    (msm_pippenger, "msm", "msm: double-and-add below the bucket threshold (K1, K3)"),
     (DeviceCurve, "point_to_host", "msm: result to affine host ints"),
     (multilinear_kzg, "pairing_pairs", "verify: host G1/G2 points (Python ints)"),
     (multilinear_kzg, "pairing_product_is_one", "verify: native pairing product"),

@@ -9,8 +9,8 @@ verify :131-158 (pairing product check
 ``e(C - v g1, g2) == sum_i e(Q_i, tau_i g2 - x_i g2)``).
 
 Quotients and folds are table operations on the polynomial's device (K3,
-K2); each proof point is one device MSM (:func:`msm_pippenger`: K4 from 2048
-points up); only the O(n)-pairing verify runs on the host, through the
+K2); each proof point is one device MSM (:func:`msm_pippenger`: K4 at every
+size); only the O(n)-pairing verify runs on the host, through the
 native pairing engine.  ``tpu_zk`` pads the tail MSMs to a grid of shapes to
 bound its compile count; nothing is compiled per shape here, so every MSM
 runs at its own size.
