@@ -8,9 +8,12 @@ Phases, in order; any failure raises and the exit code is nonzero:
 1. require a CUDA card; print ``nvidia-smi``'s name and power limit;
 2. build the kernels (one nvcc per source, side by side, sm_90a), the host
    Keccak and the host pairing engine, timed; print each kernel's registers
-   and spills as ptxas reported them; probe the card's rate of wide
-   (32 x 32 + 64 -> 64 bit) multiply-adds, the unit of the field kernels'
-   operation bounds, and of 32-bit funnel shifts and logic ops, K5's;
+   and spills as ptxas reported them; probe the card's rates of wide
+   (32 x 32 + 64 -> 64 bit) and of 32-bit multiply-adds, the two units of
+   the field kernels' operation bounds (each bound takes the cheaper), and
+   of 32-bit funnel shifts and logic ops, K5's; run field.cuh's even/odd
+   product mont_mul_eo beside mont_mul in one probe kernel, all four
+   fields, both equal to K1's plain version, and time both;
 3. K1 (Montgomery multiply) against its plain version, bit-exact, all four
    fields: 2^20 random elements, every pair of edge values, a broadcast scalar;
 4. K2 (fold + block sums) against its plain version, bit-exact: batch rows
@@ -61,8 +64,9 @@ Phases, in order; any failure raises and the exit code is nonzero:
    stage timers; K1-K4 must launch and no double-and-add MSM run; tampered
    proofs fail;
 17. K6 (NTT pass) against its plain version, bit-exact, both Fr fields, at
-   every radix the plans use and small ones, with and without pre-twiddle,
-   scale and natural-order store, ragged column counts;
+   every radix the plans use and small ones, the plans' last passes (C = 1),
+   with and without pre-twiddle, scale and natural-order store, ragged column
+   counts, and random values in the unread tws[:, 0] and tws[1:];
 18. K5 (Keccak rows) against its plain version, bit-exact, widths 0, 1, 32,
    64 and 135, 1 to 2^22 rows, rows off a 16-byte line;
 19. the NTT path over BN254 Fr: ``NTT.forward``/``inverse`` at 2^24 and 2^20,
@@ -78,8 +82,10 @@ Phases, in order; any failure raises and the exit code is nonzero:
    final codeword, query value and Merkle sibling fail, and so do random
    evaluations; K5 and K6 must launch;
 21. K6 over the three passes of a 2^24 forward and K5 over a 2^24-leaf tree,
-   beside their plain versions and bounds (wide multiply-adds and 32-bit
-   logic/shift ops at the rates probed in phase 2).
+   beside their plain versions and bounds (multiply-adds and 32-bit
+   logic/shift ops at the rates probed in phase 2): K6's time a pass, the
+   products it made (counted by its threads) against ``k6_products``, and
+   its share of the bound.
 
 The next-to-last line is ``{"kernels": [...]}``, the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -431,11 +437,12 @@ SUCCINCT_DEPTH = 24  # this slice's full width: 2^24 inputs committed, 2^24 - 1 
 MSM_LOG_NS = (20, 24)
 
 
-def wide_mad_rate(device) -> float:
-    """The card's wide multiply-adds per second, by csrc/probe.cu: the
-    instruction the field kernels' CIOS issues, (uint64_t)a * b + c, in 8
-    independent chains per thread, 2048 threads per SM.  The 32-bit form
-    x * a + b is timed beside it and only logged."""
+def mad_rates(device) -> tuple[float, float]:
+    """The card's (wide, 32-bit) multiply-adds per second, by csrc/probe.cu:
+    the wide one is the instruction field.cuh's mont_mul issues,
+    (uint64_t)a * b + c, the 32-bit one x * a + b, the unit of carry chains
+    of mad.lo / mad.hi (mont_mul_eo); each in 8 independent chains per
+    thread, 2048 threads per SM."""
     import ctypes
 
     from tpu_zk_torch import _build
@@ -458,14 +465,70 @@ def wide_mad_rate(device) -> float:
     narrow = count / (event_ms(launcher("tzk_imad_probe", 0x9E3779B1, 12345), 5) / 1e3)
     log(f"probe: {wide:.4e} wide (32 x 32 + 64 -> 64 bit) multiply-adds per second, "
         f"{narrow:.4e} 32-bit multiply-adds per second, ratio {narrow / wide:.3f}")
-    return wide
+    return wide, narrow
 
 
-def bound_ms(n_bytes: float, wide_mads: float, rate: float) -> tuple[float, str]:
+def ops_ms(wide_mads: float, rates: tuple[float, float]) -> dict:
+    """The least milliseconds for the multiply-adds of Montgomery products in
+    each unit: as wide multiply-adds at the probed wide rate, and as 32-bit
+    ones (two a wide one: the lo and hi halves) at the probed 32-bit rate."""
+    return {"wide": wide_mads / rates[0] * 1e3, "32-bit": 2 * wide_mads / rates[1] * 1e3}
+
+
+def bound_ms(n_bytes: float, wide_mads: float, rates: tuple[float, float]) -> tuple[float, str]:
     """The least milliseconds the card could take: the larger of the bytes
-    over its memory rate and the wide multiply-adds over the probed rate."""
-    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, wide_mads / rate * 1e3
+    over its memory rate and the operations in the cheaper of the two units
+    (so that a kernel of 32-bit chains cannot read above its bound)."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, min(ops_ms(wide_mads, rates).values())
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+PROBE_CHAIN = 64  # Montgomery products a thread of the product probe runs in series
+
+
+def product_probe(device) -> None:
+    """Phase 2: field.cuh's mont_mul_eo beside mont_mul in one probe kernel
+    (csrc/probe.cu), all four fields: one product of 2^20 random pairs and
+    of every pair of edge values equals K1's plain version for both; chains
+    of PROBE_CHAIN products from the same inputs agree limb for limb; both
+    timed in turns (mont_mul, mont_mul_eo, mont_mul_eo, mont_mul)."""
+    import ctypes
+
+    from tpu_zk_torch import _build
+    from tpu_zk_torch.fields import kernels
+    from tpu_zk_torch.fields.arith import field_ctx
+    from tpu_zk_torch.fields.kernels import _launch_args
+
+    lib = _build.kernel_library()
+    gen = torch.Generator(device=device).manual_seed(1)
+    for name in FIELDS:
+        ctx = field_ctx(name)
+        edges = [0, 1, 2, ctx.p - 1, ctx.p - 2, (ctx.p - 1) // 2, ctx.R % ctx.p]
+        pairs = [(x, y) for x in edges for y in edges]
+        a = torch.cat([ctx.array([x for x, _ in pairs], mont=False, device=device),
+                       rand_canonical(ctx, (1 << 20,), gen, device)])
+        b = torch.cat([ctx.array([y for _, y in pairs], mont=False, device=device),
+                       rand_canonical(ctx, (1 << 20,), gen, device)])
+        p32, n0inv = _launch_args(ctx)
+
+        def run(even_odd: int, iters: int) -> torch.Tensor:
+            res = torch.empty_like(a)
+            rc = lib.tzk_mont_probe(ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
+                                    ctypes.c_void_p(res.data_ptr()), a.shape[0], iters, even_odd, ctx.L, p32, n0inv,
+                                    ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            if rc != 0:
+                raise RuntimeError(f"tzk_mont_probe: cudaError_t {rc}")
+            return res
+
+        want = kernels.mont_mul_plain(ctx, a, b)
+        check_equal(f"mont_mul {name}", run(0, 1), want)
+        check_equal(f"mont_mul_eo {name}", run(1, 1), want)
+        check_equal(f"mont_mul_eo {name}, chains of {PROBE_CHAIN}", run(1, PROBE_CHAIN), run(0, PROBE_CHAIN))
+        ms = {0: [], 1: []}
+        for even_odd in (0, 1, 1, 0):
+            ms[even_odd].append(event_ms(lambda: run(even_odd, PROBE_CHAIN), 5))
+        log(f"product probe {name}: {a.shape[0]} chains of {PROBE_CHAIN}; equal to K1's plain version and to each "
+            f"other; mont_mul {ms[0]} ms, mont_mul_eo {ms[1]} ms")
 
 
 def mont_mul_wide_mads(ctx) -> int:
@@ -510,13 +573,13 @@ def skewed_scalars(fr, n: int, kind: str, rng, device) -> torch.Tensor:
     return s
 
 
-def k4_passes(dc, points, scalars, c: int, unit: int, what: str, rate: float | None = None) -> dict:
+def k4_passes(dc, points, scalars, c: int, unit: int, what: str, rates: tuple | None = None) -> dict:
     """Every K4a pass of one MSM's bucket sums, then K4b, each against its
     plain version as group elements and against a second launch limb for
     limb.  K4a's plain version runs PLAIN_CHUNK_UNITS units at a time (one
     call cannot hold a 2^24 launch's slots).  Returns the kernels' times
     (CUDA events) and their plain versions' (host clock), the adds each
-    needed and, with ``rate``, the bounds."""
+    needed and, with ``rates``, the bounds."""
     from tpu_zk_torch.curves import kernels
     from tpu_zk_torch.curves import msm_pippenger as mp
 
@@ -569,15 +632,17 @@ def k4_passes(dc, points, scalars, c: int, unit: int, what: str, rate: float | N
     # segment by a second running sum over their sums (the kernel's double-and-add offsets do more)
     S = -(-B // m)
     out.update(k4a_adds=live - nonempty, k4b_adds=W * 2 * (B + S))
-    if rate is not None:
+    if rates is not None:
         add_mads = EC_ADD_PRODUCTS * mont_mul_wide_mads(ctx)
         point_bytes = 3 * ctx.L * 4
         units_total = sum(p["units"] for p in out["passes"])
         # K4a reads each entry and its point and each later pass's partials once, writes each unit's sum once
         bytes_a = live * (4 + point_bytes) + (units_total - out["passes"][0]["units"]) * point_bytes \
             + units_total * point_bytes
-        out["k4a_bound"] = bound_ms(bytes_a, out["k4a_adds"] * add_mads, rate)
-        out["k4b_bound"] = bound_ms((W * B + W * S) * point_bytes, out["k4b_adds"] * add_mads, rate)
+        out["k4a_bound"] = bound_ms(bytes_a, out["k4a_adds"] * add_mads, rates)
+        out["k4b_bound"] = bound_ms((W * B + W * S) * point_bytes, out["k4b_adds"] * add_mads, rates)
+        out["k4a_ops_ms"] = ops_ms(out["k4a_adds"] * add_mads, rates)
+        out["k4b_ops_ms"] = ops_ms(out["k4b_adds"] * add_mads, rates)
     return out
 
 
@@ -803,7 +868,7 @@ def msm_stages(dc, points, scalars, c: int, unit: int | None = None, segment: in
     return out
 
 
-def msm_alone(device, rng, setup, taus, rate: float) -> dict:
+def msm_alone(device, rng, setup, taus, rates: tuple) -> dict:
     """Phase 15.  Returns the runs and K4a's and K4b's rows at 2^24."""
     from tpu_zk_torch.curves import msm_pippenger as mp
     from tpu_zk_torch.fields import arith
@@ -842,16 +907,17 @@ def msm_alone(device, rng, setup, taus, rate: float) -> dict:
             log(f"MSM alone bn254 2^{log_n}: " + json.dumps(run))
             if kind == "random":
                 # every bucket of the launch, each pass, and K4b against the plain versions
-                k4 = k4_passes(dc, points, s, c, mp.UNIT, f"MSM 2^{log_n}", rate)
+                k4 = k4_passes(dc, points, s, c, mp.UNIT, f"MSM 2^{log_n}", rates)
                 log(f"MSM alone 2^{log_n}: every K4a pass ({[p['units'] for p in k4['passes']]} units) and K4b "
                     f"({k4['segments']} segments a window) equal their plain versions: " + json.dumps(k4))
                 out["k4"] = {**out.get("k4", {}), log_n: k4}
             if log_n == max(MSM_LOG_NS) and kind == "random":
                 shape = f"{n} points, c {c}: {len(k4['passes'])} K4a passes over {k4['live_entries']} entries"
                 out["kernels"]["K4a"] = {"ms": k4["k4a_ms"], "plain_ms": k4["k4a_plain_ms"], "bound": k4["k4a_bound"],
-                                         "max_abs_err": 0, "shape": shape, "passes": k4["passes"]}
+                                         "ops_ms_by_unit": k4["k4a_ops_ms"], "max_abs_err": 0, "shape": shape,
+                                         "passes": k4["passes"]}
                 out["kernels"]["K4b"] = {"ms": k4["k4b_ms"], "plain_ms": k4["k4b_plain_ms"], "bound": k4["k4b_bound"],
-                                         "max_abs_err": 0,
+                                         "ops_ms_by_unit": k4["k4b_ops_ms"], "max_abs_err": 0,
                                          "shape": f"{k4['windows']} windows x {k4['segments']} segments of {mp.SEGMENT}"}
                 for key, row in (("k4a", "K4a"), ("k4b", "K4b")):  # the same at the smaller MSM
                     out["kernels"][row].update({
@@ -1006,7 +1072,7 @@ def kernel_times(device, gen) -> dict:
     return out
 
 
-def kernels_line(times: dict, launches: dict, k4_small: dict, k4_main: dict, k56: dict, rate: float) -> list[dict]:
+def kernels_line(times: dict, launches: dict, k4_small: dict, k4_main: dict, k56: dict, rates: tuple) -> list[dict]:
     """The {"kernels": [...]} rows.  K1-K3: times at a depth-24 GKR round's
     shapes, the basic sumcheck's beside them.  K4a, K4b: times at the 2^24
     MSM's shape (K4a: its bucket passes added up, its plain version run
@@ -1038,7 +1104,7 @@ def kernels_line(times: dict, launches: dict, k4_small: dict, k4_main: dict, k56
          "K3 GKR sub hi - lo 2^25", None),
     ):
         mine = {k: v for k, v in times.items() if k.startswith(key)}
-        least, by = bound_ms(*work[name], rate)
+        least, by = bound_ms(*work[name], rates)
         row = {"name": name, "route": "cuda", "source": "tpu_zk_torch/csrc/kernels.cu", "replaces": replaces,
                "launches": launches["succinct"][name], "launches_by_path": {p: n[name] for p, n in launches.items()},
                "max_abs_err": max(m["max_abs_err"] for m in mine.values()), "ms": times[gkr]["ms"],
@@ -1056,7 +1122,8 @@ def kernels_line(times: dict, launches: dict, k4_small: dict, k4_main: dict, k56
                      "launches": launches["succinct"][name], "launches_by_path": {p: n[name] for p, n in launches.items()},
                      "max_abs_err": main_shape["max_abs_err"], "ms": main_shape["ms"],
                      "plain_ms": main_shape["plain_ms"], "bound_ms": main_shape["bound"][0],
-                     "bound_by": main_shape["bound"][1], "library_ms": None, "shape": main_shape["shape"],
+                     "bound_by": main_shape["bound"][1], "ops_ms_by_unit": main_shape["ops_ms_by_unit"],
+                     "library_ms": None, "shape": main_shape["shape"],
                      "small_shape": f"2^{K4_CHECK_LOG_N} points", "small_ms": k4_small[key]["ms"],
                      "small_plain_ms": k4_small[key]["plain_ms"],
                      "max_abs_err_is": "points unequal to the plain version's as group elements",
@@ -1083,10 +1150,10 @@ POLY_LOG_N = 20  # polynomial_multiply of two degree-2^19 - 1 polynomials
 HORNER_POINTS = 32
 K5_WIDTHS = (0, 1, 32, 64, 135)
 K5_ROWS = (1, 3, 1000, 65537, 1 << 22)
-# K6 blocks (A, m, C): every radix the plans use (2^8 at 2^24, 2^10 at 2^20, 2^9 at 2^18), the small ones
-# of the tests, ragged column counts
-K6_SHAPES = ((1, 256, 4096), (3, 256, 5), (2, 512, 129), (1, 1024, 64), (5, 1024, 1), (7, 1, 3), (1, 2, 1000),
-             (4, 8, 33))
+# K6 blocks (A, m, C): every radix the plans use (2^8 at 2^24, 2^10 at 2^20, 2^9 at 2^18), the last pass of
+# a 2^24 and of a 2^20 forward at a smaller A (C = 1), the small ones of the tests, ragged column counts
+K6_SHAPES = ((1, 256, 4096), (4096, 256, 1), (64, 1024, 1), (3, 256, 2), (3, 256, 5), (2, 512, 129), (1, 1024, 64),
+             (5, 1024, 1), (7, 1, 3), (1, 2, 1000), (4, 8, 33))
 
 
 def keccak_ops(w: int) -> int:
@@ -1184,8 +1251,18 @@ def check_k6(device, gen) -> None:
                 check_equal(f"K6 {name} [{A}, {m}, {C}]{what}", kernels.dif_pass(ctx, x, tws, *args),
                             kernels.dif_pass_plain(ctx, x, tws, *args))
                 cases += 1
+            # tws[:, 0] and tws[1:] are not read: random values there change nothing
+            noise = tws.clone()
+            noise[:, 0] = rand_canonical(ctx, (tws.shape[0],), gen, device)
+            noise[1:] = rand_canonical(ctx, noise[1:].shape[:-1], gen, device)
+            got = kernels.dif_pass(ctx, x, noise, pre, scale, dst)
+            check_equal(f"K6 {name} [{A}, {m}, {C}] random tws[:, 0] and tws[1:]", got,
+                        kernels.dif_pass_plain(ctx, x, noise, pre, scale, dst))
+            check_equal(f"K6 {name} [{A}, {m}, {C}] random tws[:, 0] and tws[1:], against the plan's", got,
+                        kernels.dif_pass(ctx, x, tws, pre, scale, dst))
+            cases += 1
     log(f"K6: {cases} cases bit-exact (both Fr fields; radix 1 to 2^10; pre-twiddle, scale, natural-order store; "
-        f"ragged column counts)")
+        f"ragged column counts; random values in the unread tws[:, 0] and tws[1:])")
 
 
 def check_k5(device, gen) -> None:
@@ -1400,7 +1477,7 @@ def fri_path(device, gen, log_n: int) -> dict:
     return out
 
 
-def k56_times(device, gen, rate: float, lrate: float) -> dict:
+def k56_times(device, gen, rates: tuple, lrate: float) -> dict:
     """Phase 21: K6 over the three passes of one 2^24 forward and K5 over one
     2^24-leaf tree (the FRI path's largest), beside their plain versions
     and bounds, all per launch."""
@@ -1420,19 +1497,30 @@ def k56_times(device, gen, rate: float, lrate: float) -> dict:
     R = len(plan.ms)
     views = [table.view(math.prod(plan.ms[:i]), m, math.prod(plan.ms[i + 1 :]), L) for i, m in enumerate(plan.ms)]
     args = [(plan.tws[i], plan.pres[i]) + ((None, plan.dst) if i == R - 1 else ()) for i in range(R)]
-    k6_err = 0
+    k6_err, made = 0, 0
     for i in range(R):
-        got, want = nk.dif_pass(ctx, views[i], *args[i]), nk.dif_pass_plain(ctx, views[i], *args[i])
+        (got, n), want = nk.dif_pass_products(ctx, views[i], *args[i]), nk.dif_pass_plain(ctx, views[i], *args[i])
         k6_err = max(k6_err, max_err(got, want))
         check_equal(f"K6 2^{log_n} pass {i}", got, want)
+        made += n
         del got, want
     passes_ms = [event_ms(lambda i=i: nk.dif_pass(ctx, views[i], *args[i]), 10) for i in range(R)]
     plain_ms = event_ms(lambda: [nk.dif_pass_plain(ctx, views[i], *args[i]) for i in range(R)], 1)
     products = k6_products(ctx, plan)
+    one = ctx.one_mont(device)
+    pre_ones = sum(int((pre == one).all(-1).sum()) for pre in plan.pres if pre is not None)
+    if made != products + pre_ones:
+        raise AssertionError(f"K6 2^{log_n} forward made {made} products: the function needs {products}, and the "
+                             f"kernel multiplies by the {pre_ones} pre-twiddles equal to one besides")
     n_bytes = sum(2 * N * elem + (N * elem if i else 0) for i in range(R)) + N * 8
-    least, by = bound_ms(n_bytes, products * mont_mul_wide_mads(ctx), rate)
+    wide_mads = products * mont_mul_wide_mads(ctx)
+    least, by = bound_ms(n_bytes, wide_mads, rates)
+    by_unit = {unit: t / R for unit, t in ops_ms(wide_mads, rates).items()}
     k6 = {"ms": sum(passes_ms) / R, "passes_ms": passes_ms, "plain_ms": plain_ms / R, "bound_ms": least / R,
-          "bound_by": by, "max_abs_err": k6_err, "shape": f"one 2^{log_n} forward: {R} passes of radix {plan.ms}"}
+          "bound_by": by, "ops_ms_by_unit": by_unit, "bytes_ms": n_bytes / HBM_BYTES_PER_S * 1e3 / R,
+          "products_made": made, "products_needed": products, "pre_twiddles_equal_to_one": pre_ones,
+          "share_of_bound": least / sum(passes_ms), "max_abs_err": k6_err,
+          "shape": f"one 2^{log_n} forward: {R} passes of radix {plan.ms}"}
     del table, views, args, plan
 
     leaves = torch.randint(0, 256, (N, 32), generator=gen, device=device, dtype=torch.uint8)
@@ -1461,8 +1549,11 @@ def k56_times(device, gen, rate: float, lrate: float) -> dict:
     k5 = {"ms": tree_ms / levels, "tree_ms": tree_ms, "plain_ms": plain_tree_ms / levels, "bound_ms": least / levels,
           "bound_by": by, "max_abs_err": k5_err, "shape": f"one 2^{log_n}-leaf tree: {levels} launches, {hashes} hashes",
           "leaf_level_ms": event_ms(lambda: mk.keccak_rows(leaves, out=tree[:N]), 10)}
-    log(f"K6 2^{log_n} forward: passes {passes_ms} ms (plain {plain_ms:.1f} ms in all), bound {k6['bound_ms'] * R:.4f} ms "
-        f"({by}); K5 2^{log_n}-leaf tree {tree_ms:.4f} ms (leaf level {k5['leaf_level_ms']:.4f} ms; plain "
+    log(f"K6 2^{log_n} forward: passes {passes_ms} ms, {sum(passes_ms):.4f} ms in all (plain {plain_ms:.1f} ms); "
+        f"products made {made}, needed {products} (k6_products) + {pre_ones} pre-twiddles equal to one; bound "
+        f"{k6['bound_ms'] * R:.4f} ms ({by}; operations {by_unit['wide'] * R:.4f} ms wide, "
+        f"{by_unit['32-bit'] * R:.4f} ms 32-bit; bytes {k6['bytes_ms'] * R:.4f} ms): "
+        f"{100 * k6['share_of_bound']:.1f} % of it; K5 2^{log_n}-leaf tree {tree_ms:.4f} ms (leaf level {k5['leaf_level_ms']:.4f} ms; plain "
         f"{plain_tree_ms:.1f} ms), bound {least:.4f} ms ({k5['bound_by']})")
     return {"K5": k5, "K6": k6}
 
@@ -1493,8 +1584,9 @@ def main() -> None:
     _build.pairing_library()
     log(f"build: kernels {t1 - t0:.2f} s, keccak {t2 - t1:.2f} s, pairing {time.perf_counter() - t2:.2f} s")
     log("ptxas: " + json.dumps(_build.resource_usage()))
-    rate = wide_mad_rate(device)
+    rates = mad_rates(device)
     lrate = logic_rate(device)
+    product_probe(device)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     rng = np.random.default_rng(args.seed)
@@ -1516,7 +1608,7 @@ def main() -> None:
     succinct_main_path(device, rng, setup, setup_times)
     del setup
     setup, taus, setup_times = timed_setup(device, SUCCINCT_DEPTH, args.seed)
-    k4_main = msm_alone(device, rng, setup, taus, rate)  # 15
+    k4_main = msm_alone(device, rng, setup, taus, rates)  # 15
     succinct_run = succinct_main_path(device, rng, setup, setup_times)  # 16
     del setup
 
@@ -1526,13 +1618,13 @@ def main() -> None:
     ntt_run = ntt_path(device, gen, rng)  # 19
     fri_parity(device, gen)  # 20
     fri_runs = [fri_path(device, gen, log_n) for log_n in FRI_LOG_NS]
-    k56 = k56_times(device, gen, rate, lrate)  # 21
+    k56 = k56_times(device, gen, rates, lrate)  # 21
     log(f"phases 17-21 (NTT, Merkle, FRI): {time.perf_counter() - t_new:.1f} s; "
         f"whole script so far {time.perf_counter() - t_script:.1f} s")
     launches = {"sumcheck": sumcheck_runs[0]["launches"], "gkr": gkr_runs[0]["launches"],
                 "succinct": succinct_run["launches"], "ntt": ntt_run["launches"], "fri": fri_runs[0]["launches"]}
 
-    log(json.dumps({"kernels": kernels_line(times, launches, k4_small, k4_main["kernels"], k56, rate)}))
+    log(json.dumps({"kernels": kernels_line(times, launches, k4_small, k4_main["kernels"], k56, rates)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -8,8 +8,12 @@ CPU its stage-at-a-time transform) and the port's ``NTT``, whose
 the plan cut to one, two and three passes.  K6's plain version is held
 against both TPU kernels it replaces, ``_batched_dif`` and ``dft_mxu``, run
 in Pallas interpret mode as ``tests/test_sixstep.py`` runs them, on the same
-[L, m, B] blocks, with and without pre-twiddle and scale.  Everything is
-integer arithmetic, so every comparison is exact (tolerance zero).
+[L, m, B] blocks, with and without pre-twiddle and scale, and on views whose
+columns span several a (C = 1, as on the plans' last pass) or a ragged C.
+Its contract reads only ``tws[0, 1:]``: random values in ``tws[:, 0]`` and
+``tws[1:]`` change nothing, and the products it counts are the ones it
+makes.  Everything is integer arithmetic, so every comparison is exact
+(tolerance zero).
 
 Every compiled tpu_zk computation runs once, in :func:`reference`, which
 the module fixture calls in a fresh process (``tests/jax_reference.py``).
@@ -41,6 +45,10 @@ PRODUCTS = {"bn254_fr": (5, 4), "bls12_381_fr": (300, 200)}
 BLOCK_M, BLOCK_B = 8, 8
 DIF_VARIANTS = ["plain", "pre", "pre and scale"]
 MXU_VARIANTS = ["pre", "scale"]
+# K6 views [A, m, C] that are not one [L, m, B] block with A = 1: the plans' last pass (C = 1, A > 1),
+# ragged column counts, both; with the variant of _batched_dif each runs
+COLUMN_CASES = {"C=1 A=3 pre and scale": ((3, 8, 1), "pre and scale"), "C=5 A=1 pre": ((1, 8, 5), "pre"),
+                "C=3 A=2 plain": ((2, 8, 3), "plain")}
 
 
 def _values(field: str, n: int, seed: int) -> list[int]:
@@ -71,6 +79,23 @@ def _block_twiddles():
 def _scale() -> int:
     p = jarith.field_ctx("bn254_fr").p
     return pow(1 << 9, p - 2, p)
+
+
+def _column_inputs(case: str):
+    """(x, pre, scale) of a COLUMN_CASES view in the port's [A, m, C, L] layout."""
+    ctx = arith.field_ctx("bn254_fr")
+    (A, m, C), variant = COLUMN_CASES[case]
+    seed = 20 + list(COLUMN_CASES).index(case)
+    x = ctx.array(_values("bn254_fr", A * m * C, seed)).reshape(A, m, C, ctx.L)
+    pre = ctx.array(_values("bn254_fr", A * m * C, seed + 10)).reshape(A, m, C, ctx.L) if "pre" in variant else None
+    scale = ctx.scalar(_scale()) if "scale" in variant else None
+    return x, pre, scale
+
+
+def _as_block(t: torch.Tensor) -> np.ndarray:
+    """[A, m, C, L] -> the [L, m, A*C] block of _batched_dif (column a*C + c)."""
+    A, m, C, L = t.shape
+    return limbs_to_numpy(t).transpose(3, 1, 0, 2).reshape(L, m, A * C).copy()
 
 
 def reference() -> dict:
@@ -108,6 +133,13 @@ def reference() -> dict:
         "pre": np.asarray(_batched_dif(ctx, x, tws_lm, BLOCK_B, pre)),
         "pre and scale": np.asarray(_batched_dif(ctx, x, tws_lm, BLOCK_B, pre, scale)),
     }
+    out["batched_dif_columns"] = {}
+    for case in COLUMN_CASES:
+        xc, prec, scalec = _column_inputs(case)
+        B = xc.shape[0] * xc.shape[2]
+        out["batched_dif_columns"][case] = np.asarray(_batched_dif(
+            ctx, jnp.asarray(_as_block(xc)), tws_lm, B, None if prec is None else jnp.asarray(_as_block(prec)),
+            None if scalec is None else scale))
     out["dft_mxu"] = {
         "pre": np.asarray(dft_mxu(ctx, x, jnp.asarray(dft_matrix(ctx, w_m, BLOCK_M)), BLOCK_M, BLOCK_B, pre)),
         "scale": np.asarray(dft_mxu(ctx, x, jnp.asarray(dft_matrix(ctx, w_m, BLOCK_M, scale=_scale())), BLOCK_M,
@@ -201,6 +233,67 @@ def test_dif_pass_plain_matches_batched_dif(variant, ref):
     got = kernels.dif_pass_plain(ctx, x, tws, pre, scale)
     np.testing.assert_array_equal(limbs_to_numpy(got[0]).transpose(2, 0, 1), ref["batched_dif"][variant])
     assert torch.equal(kernels.dif_pass(ctx, x, tws, pre, scale), got)  # the wrapper on CPU tensors
+
+
+@pytest.mark.parametrize("case", list(COLUMN_CASES))
+def test_dif_pass_plain_matches_batched_dif_columns(case, ref):
+    """K6's columns over the flattened (a, c) pairs: C = 1 with A > 1 (the
+    plans' last pass) and ragged C, against _batched_dif on the same columns
+    as one [L, m, A*C] block."""
+    ctx = arith.field_ctx("bn254_fr")
+    _, tws = _block_twiddles()
+    x, pre, scale = _column_inputs(case)
+    got = kernels.dif_pass_plain(ctx, x, tws, pre, scale)
+    np.testing.assert_array_equal(_as_block(got), ref["batched_dif_columns"][case])
+    assert torch.equal(kernels.dif_pass(ctx, x, tws, pre, scale), got)  # the wrapper on CPU tensors
+
+
+@pytest.mark.parametrize("variant", ["plain", "pre scale dst"])
+def test_dif_pass_reads_no_twiddle_of_one(variant):
+    """tws[:, 0] (w^0) and tws[1:] are not read: random values there give the
+    same output, from the plain version and from the wrapper on CPU tensors."""
+    ctx = arith.field_ctx("bn254_fr")
+    A, m, C = 2, 16, 3
+    rng = np.random.default_rng(5)
+    plan = sixstep.SixStepPlan(ctx.name, 4, ntt.find_root_of_unity(ctx.name, 4))
+    tws = plan.tws[0]
+    noise = tws.clone()
+    noise[:, 0] = ctx.array(_values(ctx.name, tws.shape[0], 6))
+    noise[1:] = ctx.array(_values(ctx.name, (tws.shape[0] - 1) * tws.shape[1], 7)).reshape(noise[1:].shape)
+    x = ctx.array(_values(ctx.name, A * m * C, 8)).reshape(A, m, C, ctx.L)
+    args = ()
+    if variant != "plain":
+        pre = ctx.array(_values(ctx.name, A * m * C, 9)).reshape(A, m, C, ctx.L)
+        args = (pre, ctx.scalar(_scale()), torch.from_numpy(rng.permutation(A * m * C)))
+    want = kernels.dif_pass_plain(ctx, x, tws, *args)
+    assert torch.equal(kernels.dif_pass_plain(ctx, x, noise, *args), want)
+    assert torch.equal(kernels.dif_pass(ctx, x, noise, *args), want)
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 3), (4, 8, 1), (2, 1, 2), (1, 2, 5)])
+def test_dif_pass_products_counts_the_plain_versions_products(shape, monkeypatch):
+    """dif_pass_products on CPU tensors: the count is the elements that the
+    plain version multiplies, none by a twiddle of one."""
+    ctx = arith.field_ctx("bn254_fr")
+    A, m, C = shape
+    log_m = m.bit_length() - 1
+    plan = sixstep.SixStepPlan(ctx.name, log_m, ntt.find_root_of_unity(ctx.name, log_m))
+    n = A * m * C
+    x = ctx.array(_values(ctx.name, n, 10)).reshape(A, m, C, ctx.L)
+    pre = ctx.array(_values(ctx.name, n, 11)).reshape(A, m, C, ctx.L)
+    made = []
+    plain = kernels.mont_mul_plain
+
+    def counting(c, a, b):
+        out = plain(c, a, b)
+        made.append(out.numel() // c.L)
+        return out
+
+    monkeypatch.setattr(kernels, "mont_mul_plain", counting)
+    out, count = kernels.dif_pass_products(ctx, x, plan.tws[0], pre, ctx.scalar(_scale()))
+    assert count == sum(made) == A * C * (m // 2 * log_m - (m - 1)) + 2 * n
+    monkeypatch.undo()
+    assert torch.equal(out, kernels.dif_pass_plain(ctx, x, plan.tws[0], pre, ctx.scalar(_scale())))
 
 
 @pytest.mark.parametrize("variant", MXU_VARIANTS)

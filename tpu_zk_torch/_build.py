@@ -83,8 +83,9 @@ KERNEL_ARGTYPES = {
     "tzk_msm_buckets": [_PTR, _PTR, _PTR, _I64, _PTR, _PTR, _PTR, _PTR, _I64, _I32, _I32, _PTR, _U32, _PTR],
     # buckets, out, W, B, m, L, 3b, p32, n0inv, stream
     "tzk_msm_bucket_reduce": [_PTR, _PTR, _I32, _I32, _I32, _I32, _I32, _PTR, _U32, _PTR],
-    # x, tws, pre, scale, dst, out, A, log_m, C, L, p32, n0inv, stream (csrc/ntt.cu); pre, scale, dst may be null
-    "tzk_ntt_pass": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I32, _I64, _I32, _PTR, _U32, _PTR],
+    # x, tws, pre, scale, dst, out, A, log_m, C, L, p32, n0inv, products, stream (csrc/ntt.cu); pre, scale,
+    # dst and products may be null
+    "tzk_ntt_pass": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I32, _I64, _I32, _PTR, _U32, _PTR, _PTR],
     # data, out, n rows, w bytes a row, stream (csrc/keccak.cu)
     "tzk_keccak_rows": [_PTR, _PTR, _I64, _I32, _PTR],
     # out, blocks (of 256 threads), iters, a, b, stream: blocks * 256 * 8 * iters multiply-adds (csrc/probe.cu)
@@ -93,6 +94,8 @@ KERNEL_ARGTYPES = {
     "tzk_wide_mad_probe": [_PTR, _I32, _I32, _U32, _PTR],
     # out, blocks, iters, s, k, stream: blocks * 256 * 16 * iters 32-bit funnel shifts and logic ops
     "tzk_logic_probe": [_PTR, _I32, _I32, _U32, _U32, _PTR],
+    # a, b, out, n, iters, even_odd, L, p32, n0inv, stream: n chains of iters Montgomery products
+    "tzk_mont_probe": [_PTR, _PTR, _PTR, _I64, _I32, _I32, _I32, _PTR, _U32, _PTR],
 }
 
 

@@ -146,4 +146,170 @@ __device__ __forceinline__ void mont_mul(uint32_t (&out)[N], const uint32_t (&a)
   sub_p_if_ge<N>(out, t[N], f);
 }
 
+// The same product as mont_mul, the same integer out: CIOS whose rows split
+// by the parity of the limb index.  The products a[j] * b_i of even j fill
+// the words j, j + 1 of one accumulator (ev: the words 0..N-1 of the running
+// sum T), those of odd j the other (od: the words 1..N), so a row is two carry
+// chains of mad.lo.cc / madc.hi.cc, one 32-bit multiply-add each half product,
+// with no separate additions.  Dividing T by 2^32 after a row's reduction swaps
+// the two roles: od becomes the words 0..N-1, and the old ev, two words out of
+// step, is shifted into the next row's odd chain.  The carry flag runs from one
+// asm statement to the next, as the chains need.  N even and p < 2^(32N - 1)
+// (all four fields): T < 2p 2^32 < 2^(32(N+1)) before each division, so no chain
+// carries out of its top word.
+namespace eo {
+
+// One PTX instruction an asm statement, so no output can share a register with
+// a later input; asm volatile keeps their order, and the carry flag with it.
+#define TZK_CC_OP(name, op)                                                          \
+  __device__ __forceinline__ uint32_t name(uint32_t a, uint32_t b, uint32_t c) {    \
+    uint32_t r;                                                                      \
+    asm volatile(op " %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));          \
+    return r;                                                                        \
+  }
+TZK_CC_OP(mad_lo_cc, "mad.lo.cc.u32")
+TZK_CC_OP(madc_lo_cc, "madc.lo.cc.u32")
+TZK_CC_OP(madc_hi_cc, "madc.hi.cc.u32")
+TZK_CC_OP(madc_hi, "madc.hi.u32")
+#undef TZK_CC_OP
+
+__device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t addc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t addc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// acc[0..N-1] += a[0] bi + a[2] bi 2^64 + ... (lo, hi of each into two words); the carry out is left in CC
+template <int N>
+__device__ __forceinline__ void mad_chain(uint32_t (&acc)[N], const uint32_t* a, uint32_t bi) {
+  acc[0] = mad_lo_cc(a[0], bi, acc[0]);
+  acc[1] = madc_hi_cc(a[0], bi, acc[1]);
+#pragma unroll
+  for (int j = 2; j < N; j += 2) {
+    acc[j] = madc_lo_cc(a[j], bi, acc[j]);
+    acc[j + 1] = madc_hi_cc(a[j], bi, acc[j + 1]);
+  }
+}
+
+// T <- T + m p with m = ev[0] n0inv, so that ev[0] becomes 0
+template <int N>
+__device__ __forceinline__ void redc_row(uint32_t (&ev)[N], uint32_t (&od)[N], const FieldParams& f) {
+  const uint32_t m = ev[0] * f.n0inv;
+  mad_chain<N>(od, f.p + 1, m);  // words 1..N; no carry out (bound above)
+  mad_chain<N>(ev, f.p, m);
+  od[N - 1] = addc(od[N - 1], 0);
+}
+
+// One row after the first: T <- T / 2^32 + a bi, then its reduction.  On entry x
+// holds the words 1..N and y the words 0..N-1 with y[0] = 0; on return x holds
+// the words 0..N-1 and y the words 1..N.
+template <int N>
+__device__ __forceinline__ void row(uint32_t (&x)[N], uint32_t (&y)[N], const uint32_t (&a)[N], uint32_t bi,
+                                    const FieldParams& f) {
+  x[0] = add_cc(x[0], y[1]);
+#pragma unroll
+  for (int k = 0; k + 2 < N; k += 2) {  // odd products, with y moved down two words
+    y[k] = madc_lo_cc(a[k + 1], bi, y[k + 2]);
+    y[k + 1] = madc_hi_cc(a[k + 1], bi, y[k + 3]);
+  }
+  y[N - 2] = madc_lo_cc(a[N - 1], bi, 0);
+  y[N - 1] = madc_hi(a[N - 1], bi, 0);
+  mad_chain<N>(x, a, bi);
+  y[N - 1] = addc(y[N - 1], 0);
+  redc_row<N>(x, y, f);
+}
+
+__device__ __forceinline__ uint32_t sub_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t subc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t subc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+}  // namespace eo
+
+// The same results as mod_add and mod_sub, by carry chains of add.cc / sub.cc
+// (one instruction a word where the 64-bit sums above take two or three).
+template <int N>
+__device__ __forceinline__ void mod_add_cc(uint32_t (&out)[N], const uint32_t (&a)[N], const uint32_t (&b)[N],
+                                           const FieldParams& f) {
+  uint32_t s[N], d[N];
+  s[0] = eo::add_cc(a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < N; ++j) s[j] = eo::addc_cc(a[j], b[j]);
+  const uint32_t top = eo::addc(0, 0);
+  d[0] = eo::sub_cc(s[0], f.p[0]);
+#pragma unroll
+  for (int j = 1; j < N; ++j) d[j] = eo::subc_cc(s[j], f.p[j]);
+  const uint32_t below = eo::subc(top, 0);  // all ones where a + b < p
+#pragma unroll
+  for (int j = 0; j < N; ++j) out[j] = below ? s[j] : d[j];
+}
+
+template <int N>
+__device__ __forceinline__ void mod_sub_cc(uint32_t (&out)[N], const uint32_t (&a)[N], const uint32_t (&b)[N],
+                                           const FieldParams& f) {
+  uint32_t d[N];
+  d[0] = eo::sub_cc(a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < N; ++j) d[j] = eo::subc_cc(a[j], b[j]);
+  const uint32_t mask = eo::subc(0, 0);  // all ones where a < b: add p back
+  out[0] = eo::add_cc(d[0], f.p[0] & mask);
+#pragma unroll
+  for (int j = 1; j < N; ++j) out[j] = eo::addc_cc(d[j], f.p[j] & mask);
+}
+
+template <int N>
+__device__ __forceinline__ void mont_mul_eo(uint32_t (&out)[N], const uint32_t (&a)[N], const uint32_t (&b)[N],
+                                            const FieldParams& f) {
+  static_assert(N % 2 == 0, "mont_mul_eo needs an even number of limbs");
+  uint32_t ev[N], od[N];
+#pragma unroll
+  for (int j = 0; j < N; j += 2) {
+    ev[j] = a[j] * b[0];
+    ev[j + 1] = __umulhi(a[j], b[0]);
+    od[j] = a[j + 1] * b[0];
+    od[j + 1] = __umulhi(a[j + 1], b[0]);
+  }
+  eo::redc_row<N>(ev, od, f);
+#pragma unroll
+  for (int i = 1; i < N; i += 2) {
+    eo::row<N>(od, ev, a, b[i], f);
+    if (i + 1 < N) eo::row<N>(ev, od, a, b[i + 1], f);
+  }
+  // after an even number of rows ev holds the words 1..N (now 0..N-1) and od
+  // the words 0..N-1 with od[0] = 0 (now -1..N-2): add them
+  ev[0] = eo::add_cc(ev[0], od[1]);
+#pragma unroll
+  for (int j = 1; j + 1 < N; ++j) ev[j] = eo::addc_cc(ev[j], od[j + 1]);
+  ev[N - 1] = eo::addc_cc(ev[N - 1], 0);
+  const uint32_t top = eo::addc(0, 0);
+#pragma unroll
+  for (int j = 0; j < N; ++j) out[j] = ev[j];
+  sub_p_if_ge<N>(out, top, f);
+}
+
 }  // namespace tzk

@@ -9,6 +9,11 @@
 // tzk_imad_probe times the 32-bit form x * a + b beside it, to show how the
 // two rates stand to each other.
 //
+// tzk_mont_probe runs chains of Montgomery products x <- x * y, each by
+// field.cuh's mont_mul or by mont_mul_eo, in one kernel: one chain of ``iters``
+// products a thread from the same inputs, so the two products' outputs must
+// be equal limb for limb and their times compare the products alone.
+//
 // tzk_logic_probe times 32-bit funnel shifts and logic ops, two a step
 // (x <- rotl32(x, s) ^ k, with s and k run-time values so that no two steps
 // fold into one): the instructions of csrc/keccak.cu's permutation, whose
@@ -17,6 +22,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "field.cuh"
 
 namespace tzk {
 
@@ -73,9 +80,59 @@ __global__ void __launch_bounds__(kProbeThreads) logic_probe_kernel(uint32_t* __
   out[(int64_t)blockIdx.x * blockDim.x + threadIdx.x] = acc;
 }
 
+// Thread i: x = a[i], then x <- x * b[i] ``iters`` times; out[i] = x.
+template <int N, bool EVEN_ODD>
+__global__ void __launch_bounds__(kProbeThreads)
+    mont_probe_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b, uint32_t* __restrict__ out,
+                      int64_t n, int iters, FieldParams f) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t x[N], y[N];
+  load_elem<N>(a + i * 2 * N, x);
+  load_elem<N>(b + i * 2 * N, y);
+  for (int k = 0; k < iters; ++k) {
+    uint32_t z[N];
+    if constexpr (EVEN_ODD) {
+      mont_mul_eo<N>(z, x, y, f);
+    } else {
+      mont_mul<N>(z, x, y, f);
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[j] = z[j];
+  }
+  store_elem<N>(out + i * 2 * N, x);
+}
+
+template <int N>
+int mont_probe_launch(const void* a, const void* b, void* out, int64_t n, int iters, int even_odd, const FieldParams& f,
+                      cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((n + kProbeThreads - 1) / kProbeThreads);
+  const auto* pa = static_cast<const uint32_t*>(a);
+  const auto* pb = static_cast<const uint32_t*>(b);
+  auto* po = static_cast<uint32_t*>(out);
+  if (even_odd) {
+    mont_probe_kernel<N, true><<<blocks, kProbeThreads, 0, stream>>>(pa, pb, po, n, iters, f);
+  } else {
+    mont_probe_kernel<N, false><<<blocks, kProbeThreads, 0, stream>>>(pa, pb, po, n, iters, f);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace tzk
 
 extern "C" {
+
+// a, b, out: [n, L] int32 16-bit limbs, L = 16 or 24; even_odd picks
+// mont_mul_eo, else mont_mul.  out[i] = a[i] b[i]^iters R^(-iters) (Montgomery).
+int tzk_mont_probe(const void* a, const void* b, void* out, int64_t n, int iters, int even_odd, int L,
+                   const uint32_t* p32, uint32_t n0inv, void* stream) {
+  using namespace tzk;
+  if (n <= 0 || iters < 0 || (L != 16 && L != 24)) return (int)cudaErrorInvalidValue;
+  const FieldParams f = make_params(p32, L / 2, n0inv);
+  auto st = static_cast<cudaStream_t>(stream);
+  return L == 16 ? mont_probe_launch<8>(a, b, out, n, iters, even_odd, f, st)
+                 : mont_probe_launch<12>(a, b, out, n, iters, even_odd, f, st);
+}
 
 // out: [blocks * 256] int32.  Launches blocks x 256 threads, each doing
 // 8 * iters multiply-adds; returns cudaGetLastError().

@@ -4,19 +4,25 @@ K6 ``dif_pass``: one batched radix-m DIF pass of the multi-pass NTT.  The
 table is viewed as ``[A, m, C, L]``; each of the A*C columns (its m elements
 along the middle axis) is optionally multiplied elementwise by ``pre``, runs
 log2(m) Gentleman-Sande stages (``lo = u + v``, ``hi = (u - v) * w``, stage s
-slot j of ``tws`` holding w_m^(j << s)), so that position j ends up holding
-the DFT's output k = bitrev(j), is optionally multiplied by ``scale``, and
-is stored at its own position or, with ``dst``, at the row that ``dst``
-names (the plan's last pass stores in natural order that way).
+slot j taking w_m^(j << s) from ``tws[0, j << s]``, and ``hi = u - v`` where
+j = 0), so that position j ends up holding the DFT's output k = bitrev(j), is
+optionally multiplied by ``scale``, and is stored at its own position or,
+with ``dst``, at the row that ``dst`` names (the plan's last pass stores in
+natural order that way).  ``tws`` keeps the plan's [log2 m, m/2, L] shape
+(stage s slot j = w_m^(j << s)), but only ``tws[0, 1:]`` is read: ``tws[1:]``
+and ``tws[:, 0]`` are not, so the kernel and the plain version agree for any
+values there.
 Replaces ``tpu_zk/ntt/sixstep.py:112 _batched_dif`` and
 ``tpu_zk/fields/mxu_mul.py:405 dft_mxu``, which compute that function on
 ``[L, m, B]`` blocks (``B = A * C`` with ``A = 1``, or ``C = 1``).
 
-It is bound by operations: a CIOS product (2 (L/2)^2 wide multiply-adds) per
-butterfly whose twiddle is not 1 (all but m - 1 of a column's m/2 log2 m)
-and per pre-twiddle that is not 1 or scaled element.  What the design does
-about it is in ``csrc/ntt.cu``: one block per few columns held in shared
-memory, every stage there, and no transpose between the plan's passes.
+It is bound by operations: a CIOS product (2 (L/2)^2 wide multiply-adds, or
+4 (L/2)^2 32-bit ones) per butterfly whose twiddle is not 1 (all but m - 1 of
+a column's m/2 log2 m), per pre-twiddle and per scaled element.  What the
+design does about it is in ``csrc/ntt.cu``: no product by w^0, tiles of whole
+columns on every pass, radix-4 rounds in registers between exchanges through
+shared memory, six blocks of 128 threads an SM so that some blocks' loads
+run under the others' products, and field.cuh's even/odd product.
 
 The wrapper runs the plain PyTorch version when its tensors lie on the CPU,
 and for CUDA tensors launches the kernel (built by :mod:`tpu_zk_torch._build`
@@ -35,7 +41,7 @@ from ..fields import arith
 from ..fields.kernels import _check_limbs, _launch_args, _on_cpu, _ptr, _raise_on, _stream
 from ..fields.kernels import add_plain, mont_mul_plain, sub_plain
 
-MAX_LOG_M = 10  # the kernel holds at most 1024 elements (32 KB) of a block in shared memory
+MAX_LOG_M = 10  # the largest radix the kernel takes (csrc/ntt.cu kNttMaxLogM)
 
 
 def dif_pass_plain(ctx: arith.FieldCtx, x: torch.Tensor, tws: torch.Tensor, pre: torch.Tensor | None = None,
@@ -51,7 +57,10 @@ def dif_pass_plain(ctx: arith.FieldCtx, x: torch.Tensor, tws: torch.Tensor, pre:
         y = t.reshape(A, m // (2 * H), 2, H, C, L)
         u, v = y[:, :, 0], y[:, :, 1]
         lo = add_plain(ctx, u, v)
-        hi = mont_mul_plain(ctx, sub_plain(ctx, u, v), tws[s, :H, None, :])
+        hi = sub_plain(ctx, u, v)  # slot 0: w^0, no product
+        if H > 1:
+            w = tws[0, :: 1 << s]  # slot j: w_m^(j << s), j < H
+            hi[:, :, 1:] = mont_mul_plain(ctx, hi[:, :, 1:], w[1:, None, :])
         t = torch.stack([lo, hi], dim=2).reshape(A, m, C, L)
     if scale is not None:
         t = mont_mul_plain(ctx, t, scale)
@@ -65,6 +74,19 @@ def dif_pass_plain(ctx: arith.FieldCtx, x: torch.Tensor, tws: torch.Tensor, pre:
 def dif_pass(ctx: arith.FieldCtx, x: torch.Tensor, tws: torch.Tensor, pre: torch.Tensor | None = None,
              scale: torch.Tensor | None = None, dst: torch.Tensor | None = None) -> torch.Tensor:
     """K6: see :func:`dif_pass_plain` for the contract."""
+    return _dif_pass(ctx, x, tws, pre, scale, dst, count=False)[0]
+
+
+def dif_pass_products(ctx: arith.FieldCtx, x: torch.Tensor, tws: torch.Tensor, pre: torch.Tensor | None = None,
+                      scale: torch.Tensor | None = None, dst: torch.Tensor | None = None) -> tuple[torch.Tensor, int]:
+    """K6 as :func:`dif_pass`, and the Montgomery products it made: on the
+    card as the kernel's threads counted them, for CPU tensors by the plain
+    version's rule (one a butterfly off slot 0, a pre-twiddle, a scaled
+    element)."""
+    return _dif_pass(ctx, x, tws, pre, scale, dst, count=True)
+
+
+def _dif_pass(ctx, x, tws, pre, scale, dst, count: bool):
     if x.dim() != 4:
         raise ValueError(f"dif_pass: x must be [A, m, C, L], got shape {tuple(x.shape)}")
     A, m, C, L = x.shape
@@ -91,23 +113,27 @@ def dif_pass(ctx: arith.FieldCtx, x: torch.Tensor, tws: torch.Tensor, pre: torch
             raise ValueError(f"dif_pass: dst must be a contiguous int64 [{A * m * C}] permutation")
         operands.append(dst)
     if _on_cpu(*operands):
-        return dif_pass_plain(ctx, x, tws, pre, scale, dst)
+        n = A * m * C
+        products = A * C * (m // 2 * log_m - (m - 1)) + (n if pre is not None else 0) + (n if scale is not None else 0)
+        return dif_pass_plain(ctx, x, tws, pre, scale, dst), products
     if L != 16 or log_m > MAX_LOG_M:
         raise ValueError(f"dif_pass: the kernel takes L = 16 and radix up to 2^{MAX_LOG_M}, got L = {L}, m = {m}")
     out = torch.empty_like(x)
     if x.numel() == 0:
-        return out
+        return out, 0
+    # one count per thread of the launch, which has at most A m C + 1024 threads
+    counts = torch.zeros(A * m * C + 1024, dtype=torch.int64, device=x.device) if count else None
     p32, n0inv = _launch_args(ctx)
     null = ctypes.c_void_p(None)
     rc = _build.kernel_library().tzk_ntt_pass(
         _ptr(x), _ptr(tws) if tws.numel() else null, null if pre is None else _ptr(pre),
         null if scale is None else _ptr(scale), null if dst is None else _ptr(dst), _ptr(out), ctypes.c_int64(A),
-        ctypes.c_int(log_m),
-        ctypes.c_int64(C), ctypes.c_int(L), p32, n0inv, _stream(),
+        ctypes.c_int(log_m), ctypes.c_int64(C), ctypes.c_int(L), p32, n0inv,
+        null if counts is None else _ptr(counts), _stream(),
     )
     _raise_on(rc, "dif_pass")
     dif_pass.launches += 1
-    return out
+    return out, int(counts.sum()) if count else None
 
 
 dif_pass.launches = 0

@@ -18,8 +18,8 @@ element at its natural-order row, k = k_0 + m_0 k_1 + m_0 m_1 k_2 + ...
 into that order after the last pass.
 
 Every split of n_log2 gives the same integers.  The plan takes the fewest
-passes of radix at most 2^max_log; the default is what K6 holds in shared
-memory (2^10), and the tests lower it to reach two and three passes at
+passes of radix at most 2^max_log; the default is the largest radix K6
+takes (2^10), and the tests lower it to reach two and three passes at
 small sizes.
 """
 
