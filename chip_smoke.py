@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run tpu_zk_torch's basic sumcheck, GKR, MSM, KZG, succinct GKR, NTT and FRI on one CUDA card and check its kernels.
+"""Run tpu_zk_torch's basic sumcheck, GKR, MSM, KZG, succinct GKR, NTT, FRI and dense GKR on one CUDA card and check its kernels.
 
     python3 chip_smoke.py [--seed S]
 
@@ -85,7 +85,24 @@ Phases, in order; any failure raises and the exit code is nonzero:
    beside their plain versions and bounds (multiply-adds and 32-bit
    logic/shift ops at the rates probed in phase 2): K6's time a pass, the
    products it made (counted by its threads) against ``k6_products``, and
-   its share of the bound.
+   its share of the bound;
+22. the dense GKR pipeline over BN254 Fr (``gkr/protocol.py``,
+   ``gkr/succinct.py``): the proof JSON from the card equals the CPU's on a
+   depth-4 mixed circuit, and the dense succinct JSON on the BLS12-381
+   two-layer circuit of phase 13; ``tree_sum_circuit`` of depth 9 (512
+   inputs, 511 gates; layer 8's wiring pair holds 2^26 entries, 8 GiB, the
+   most an 80 GB card can fold at the next depth's 64 GiB):
+   ``Circuit.evaluate``, ``protocol.prove`` and ``protocol.verify``, first
+   call and warm, then under ``gkr/breakdown.py``'s dense stage timers; the
+   output must equal the host's sum, the proof JSON ``sparse.prove``'s, a
+   tampered wb evaluation and round coefficient must fail, K1-K3 must
+   launch; the depth-9 tree of alternating ADD/MUL gates, its JSON equal
+   to ``sparse.prove``'s; dense ``prove_succinct``/``verify_succinct`` at
+   depth 9 (a 9-variable setup from the seed's taus), its JSON equal to
+   ``sparse.prove_succinct``'s, a tampered KZG evaluation failing, K4a and
+   K4b launching and no double-and-add MSM; the interactive sumcheck over
+   2^20 entries, every round accepted, the oracle check true, a tampered
+   claim rejected.
 
 The next-to-last line is ``{"kernels": [...]}``, the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -389,7 +406,7 @@ def gkr_main_path(device, rng, depth: int) -> dict:
     reset_launches()
     table, t_mont = sync_time(lambda: arith.to_mont(ctx, plain))
     del plain
-    ev, t_eval = sync_time(lambda: circuit.evaluate(table))
+    ev, t_eval = sync_time(lambda: circuit.evaluate(table, materialize=False))
     proof, t_prove = sync_time(lambda: sparse.prove(circuit, table))
     ok, t_verify = sync_time(lambda: sparse.verify(circuit, proof, table))
     launches = read_launches()
@@ -413,7 +430,7 @@ def gkr_main_path(device, rng, depth: int) -> dict:
     if sparse.verify(circuit, proof, table):
         raise AssertionError(f"GKR depth {depth} proof with a tampered round coefficient verifies")
 
-    _, t_eval_warm = sync_time(lambda: circuit.evaluate(table))
+    _, t_eval_warm = sync_time(lambda: circuit.evaluate(table, materialize=False))
     warm_proof, t_prove_warm = sync_time(lambda: sparse.prove(circuit, table))
     ok, t_verify_warm = sync_time(lambda: sparse.verify(circuit, warm_proof, table))
     if not ok:
@@ -1080,7 +1097,8 @@ def kernels_line(times: dict, launches: dict, k4_small: dict, k4_main: dict, k56
     both kernels' times at 2^12 points beside them.  K5, K6: time per launch over one 2^24-leaf tree and
     one 2^24 forward transform.  ``launches`` is the depth-24 succinct
     path's count for K1-K4 and the 2^24 NTT -> FRI path's for K5 and K6;
-    every path's count is beside it.  No PyTorch call computes any of these
+    every path's count is beside it, phase 22's dense, dense succinct and
+    interactive paths among them.  No PyTorch call computes any of these
     functions, so ``library_ms`` is null."""
     from tpu_zk_torch.fields.arith import field_ctx
 
@@ -1558,6 +1576,222 @@ def k56_times(device, gen, rates: tuple, lrate: float) -> dict:
     return {"K5": k5, "K6": k6}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the dense GKR pipeline and the interactive sumcheck (K1-K4)
+# ---------------------------------------------------------------------------
+
+# the largest dense circuit an 80 GB card holds: layer i's wiring pair is [2, 2^(3i+2), 16] int32, so
+# layer 8's is 8 GiB (2^31 limbs); a depth-10 tree's layer 9 would need 64 GiB and 32 GiB for its first fold
+DENSE_DEPTH = 9
+DENSE_PARITY_DEPTH = 4
+INTERACTIVE_LOG_N = 20
+
+
+def alternating_tree(ctx, depth: int):
+    """tree_sum_circuit's shape with gate g of each layer ADD for even g and
+    MUL for odd g."""
+    from tpu_zk_torch.circuit.layered import Circuit, Layer
+
+    layers = []
+    for i in range(depth):
+        g = np.arange(1 << i)
+        layers.append(Layer.from_arrays(2 * g, 2 * g + 1, g, g % 2))
+    return Circuit(ctx, layers)
+
+
+def check_dense_parity(device, rng) -> None:
+    """Phase 22, first: the dense proofs from the card equal the CPU's."""
+    from tpu_zk_torch.circuit.layered import Circuit, Gate, Layer
+    from tpu_zk_torch.fields.arith import field_ctx
+    from tpu_zk_torch.gkr import protocol, succinct
+    from tpu_zk_torch.kzg.trusted_setup import TrustedSetup
+    from tpu_zk_torch.utils.serialize import gkr_proof_to_json, succinct_proof_to_json
+
+    ctx = field_ctx("bn254_fr")
+    circuit = mixed_circuit(ctx, DENSE_PARITY_DEPTH, rng)
+    vals = [int.from_bytes(rng.bytes(32), "little") % ctx.p for _ in range(1 << DENSE_PARITY_DEPTH)]
+    jsons = []
+    for dev in (device, torch.device("cpu")):
+        table = ctx.array(vals, device=dev)
+        proof = protocol.prove(circuit, table)
+        if not protocol.verify(circuit, proof, table):
+            raise AssertionError(f"dense GKR mixed depth {DENSE_PARITY_DEPTH} proof on {dev} does not verify")
+        jsons.append(gkr_proof_to_json(proof, ctx.name))
+    if jsons[0] != jsons[1]:
+        raise AssertionError(f"dense GKR mixed depth {DENSE_PARITY_DEPTH}: proof JSON from the card differs from the CPU's")
+
+    bls = field_ctx("bls12_381_fr")
+    two_layers = Circuit(bls, [Layer([Gate.mul(0, 1, 0)]), Layer([Gate.add(0, 1, 0), Gate.mul(2, 3, 1)])])
+    succinct_jsons = []
+    for dev in (device, torch.device("cpu")):
+        setup = TrustedSetup.initialize_setup("bls12_381", [5, 2], device=dev)
+        proof = succinct.prove_succinct(two_layers, [2, 3, 4, 5], setup)
+        if not succinct.verify_succinct(two_layers, proof, setup):
+            raise AssertionError(f"dense succinct two-layer proof on {dev} does not verify")
+        succinct_jsons.append(succinct_proof_to_json(proof, bls.name))
+    if succinct_jsons[0] != succinct_jsons[1]:
+        raise AssertionError("dense succinct two layers: proof JSON from the card differs from the CPU's")
+    log(f"dense parity: mixed depth {DENSE_PARITY_DEPTH} bn254_fr and succinct two layers bls12_381, "
+        f"CUDA proof JSON == CPU proof JSON ({len(jsons[0])} and {len(succinct_jsons[0])} bytes), all verify")
+
+
+def dense_path(device, rng, seed: int) -> dict:
+    """Phase 22: evaluate, dense prove and verify of tree_sum_circuit(9) on
+    random inputs, first call and warm, then under the dense stage timers;
+    the alternating ADD/MUL tree; dense prove_succinct and verify_succinct."""
+    from tpu_zk_torch.circuit.layered import tree_sum_circuit
+    from tpu_zk_torch.curves import ec_device
+    from tpu_zk_torch.fields import arith
+    from tpu_zk_torch.fields.arith import field_ctx
+    from tpu_zk_torch.gkr import breakdown, protocol, sparse, succinct
+    from tpu_zk_torch.kzg.trusted_setup import TrustedSetup, generate_values_for_tau
+    from tpu_zk_torch.utils.serialize import gkr_proof_to_json, succinct_proof_from_json, succinct_proof_to_json
+
+    ctx = field_ctx("bn254_fr")
+    depth = DENSE_DEPTH
+    plain, want_sum = random_table(ctx, rng, depth, device)
+    circuit = tree_sum_circuit(ctx, depth)
+    table = arith.to_mont(ctx, plain)
+    del plain
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ev, t_eval = sync_time(lambda: circuit.evaluate(table))
+    proof, t_prove = sync_time(lambda: protocol.prove(circuit, table))
+    ok, t_verify = sync_time(lambda: protocol.verify(circuit, proof, table))
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    if not ok:
+        raise AssertionError(f"dense GKR depth {depth} proof does not verify")
+    if ev.output != [want_sum] or proof.circuit_output != [want_sum] or ev.layer_evaluations[0] != [want_sum]:
+        raise AssertionError(f"dense GKR depth {depth}: output differs from the host's sum of the inputs")
+    if len(ev.layer_evaluations) != depth + 1 or len(ev.layer_evaluations[-1]) != 1 << depth:
+        raise AssertionError(f"dense GKR depth {depth}: wrong layer evaluations")
+    if len(proof.sumcheck_proofs) != depth or len(proof.sumcheck_proofs[-1].round_univariate_polynomials) != 2 * depth:
+        raise AssertionError(f"dense GKR depth {depth}: wrong number of layers or rounds")
+    for name in ("mont_mul", "fold", "addsub"):
+        if launches[name] == 0:
+            raise AssertionError(f"dense GKR at depth {depth} never launched kernel {name}")
+    dense_json = gkr_proof_to_json(proof, ctx.name)
+    if gkr_proof_to_json(sparse.prove(circuit, table), ctx.name) != dense_json:
+        raise AssertionError(f"dense GKR depth {depth}: proof JSON differs from sparse.prove's")
+    proof.wb_evaluations[0] += 1
+    if protocol.verify(circuit, proof, table):
+        raise AssertionError(f"dense GKR depth {depth} proof with a tampered wb evaluation verifies")
+    proof.wb_evaluations[0] -= 1
+    coeffs = proof.sumcheck_proofs[-1].round_univariate_polynomials[3].coefficients
+    coeffs[1] = (coeffs[1] + 1) % ctx.p
+    if protocol.verify(circuit, proof, table):
+        raise AssertionError(f"dense GKR depth {depth} proof with a tampered round coefficient verifies")
+
+    _, t_eval_warm = sync_time(lambda: circuit.evaluate(table))
+    warm, t_prove_warm = sync_time(lambda: protocol.prove(circuit, table))
+    ok, t_verify_warm = sync_time(lambda: protocol.verify(circuit, warm, table))
+    if not ok or gkr_proof_to_json(warm, ctx.name) != dense_json:
+        raise AssertionError(f"dense GKR depth {depth}: the warm proof differs or does not verify")
+    (_, prove_stages, prove_calls, _), t_prove_timers = sync_time(
+        lambda: breakdown.staged(lambda: protocol.prove(circuit, table), device, breakdown.DENSE_STAGES))
+    (ok, verify_stages, verify_calls, _), t_verify_timers = sync_time(
+        lambda: breakdown.staged(lambda: protocol.verify(circuit, warm, table), device, breakdown.DENSE_STAGES))
+    if not ok:
+        raise AssertionError(f"dense GKR depth {depth}: the proof under the stage timers does not verify")
+
+    mixed = alternating_tree(ctx, depth)
+    mixed_proof = protocol.prove(mixed, table)
+    if not protocol.verify(mixed, mixed_proof, table):
+        raise AssertionError(f"dense GKR alternating ADD/MUL tree depth {depth}: the proof does not verify")
+    if gkr_proof_to_json(mixed_proof, ctx.name) != gkr_proof_to_json(sparse.prove(mixed, table), ctx.name):
+        raise AssertionError(f"dense GKR alternating ADD/MUL tree depth {depth}: proof JSON differs from sparse.prove's")
+
+    setup = TrustedSetup.initialize_setup("bn254", generate_values_for_tau("bn254", depth, seed=seed))
+    setup.folded_g1_bases()
+    reset_launches()
+    double_and_add = []
+    saved_msm = ec_device.msm
+    ec_device.msm = lambda *a, **k: double_and_add.append(1) or saved_msm(*a, **k)
+    try:
+        s_proof, t_s_prove = sync_time(lambda: succinct.prove_succinct(circuit, table, setup))
+        s_json = succinct_proof_to_json(s_proof, ctx.name)
+        ok, t_s_verify = sync_time(lambda: succinct.verify_succinct(circuit, succinct_proof_from_json(s_json), setup))
+    finally:
+        ec_device.msm = saved_msm
+    s_launches = read_launches()
+    if not ok:
+        raise AssertionError(f"dense succinct GKR depth {depth}: the proof does not verify")
+    for name in SUCCINCT_KERNELS:
+        if s_launches[name] == 0:
+            raise AssertionError(f"dense succinct GKR at depth {depth} never launched kernel {name}")
+    if double_and_add:
+        raise AssertionError(f"dense succinct GKR depth {depth}: {len(double_and_add)} double-and-add MSMs ran")
+    if succinct_proof_to_json(sparse.prove_succinct(circuit, table, setup), ctx.name) != s_json:
+        raise AssertionError(f"dense succinct GKR depth {depth}: proof JSON differs from sparse.prove_succinct's")
+    tampered = succinct_proof_from_json(s_json)
+    tampered.input_rb_proof.evaluation += 1
+    if succinct.verify_succinct(circuit, tampered, setup):
+        raise AssertionError(f"dense succinct GKR depth {depth}: a proof with a tampered KZG evaluation verifies")
+    warm_s, t_s_prove_warm = sync_time(lambda: succinct.prove_succinct(circuit, table, setup))
+    ok, t_s_verify_warm = sync_time(lambda: succinct.verify_succinct(circuit, warm_s, setup))
+    if not ok or succinct_proof_to_json(warm_s, ctx.name) != s_json:
+        raise AssertionError(f"dense succinct GKR depth {depth}: the warm proof differs or does not verify")
+
+    out = {
+        "depth": depth, "gates": (1 << depth) - 1, "evaluate_first_s": t_eval, "prove_first_s": t_prove,
+        "verify_first_s": t_verify, "evaluate_warm_s": t_eval_warm, "prove_warm_s": t_prove_warm,
+        "verify_warm_s": t_verify_warm, "peak_mem_gib": peak, "launches": launches,
+        "proof_json_bytes": len(dense_json), "prove_with_timers_s": t_prove_timers, "prove_stages_s": prove_stages,
+        "prove_stage_calls": prove_calls, "verify_with_timers_s": t_verify_timers, "verify_stages_s": verify_stages,
+        "verify_stage_calls": verify_calls,
+        "succinct": {"prove_first_s": t_s_prove, "verify_first_s": t_s_verify, "prove_warm_s": t_s_prove_warm,
+                     "verify_warm_s": t_s_verify_warm, "launches": s_launches},
+    }
+    log(f"dense GKR depth {depth} bn254_fr: " + json.dumps(out))
+    return out
+
+
+def interactive_path(device, rng) -> dict:
+    """Phase 22, last: the interactive sumcheck over a random 2^20 BN254 Fr
+    table; prover and verifier agree every round, the oracle check holds and
+    a tampered claim is rejected."""
+    from tpu_zk_torch.fields import arith
+    from tpu_zk_torch.fields.arith import field_ctx
+    from tpu_zk_torch.poly.multilinear import MultilinearPolynomial
+    from tpu_zk_torch.sumcheck import interactive
+
+    ctx = field_ctx("bn254_fr")
+    plain, want_sum = random_table(ctx, rng, INTERACTIVE_LOG_N, device)
+    poly = MultilinearPolynomial(ctx, arith.to_mont(ctx, plain))
+    del plain
+
+    def run():
+        prover, verifier = interactive.Prover(poly), interactive.Verifier(poly)
+        claim, univ = prover.prove(0)
+        rounds = [(claim, univ)]
+        if claim != want_sum or not verifier.verify(claim, univ):
+            raise AssertionError("interactive sumcheck: round 0 disagrees with the host's sum")
+        for _ in range(INTERACTIVE_LOG_N):
+            claim, univ = prover.prove(verifier.generate_challenge())
+            rounds.append((claim, univ))
+            if not verifier.verify(claim, univ):
+                raise AssertionError(f"interactive sumcheck: round {len(rounds) - 1} rejected")
+        if not verifier.oracle_check() or rounds[-1][1][0] != 0:
+            raise AssertionError("interactive sumcheck: the oracle check or the last round's split_at(0) fails")
+        return verifier, rounds
+
+    reset_launches()
+    (verifier, rounds), t_first = sync_time(run)
+    launches = read_launches()
+    if not all(launches[k] > 0 for k in ("mont_mul", "fold")):
+        raise AssertionError(f"interactive sumcheck skipped a kernel: {launches}")
+    if verifier.verify(rounds[3][0] + 1, rounds[3][1]):
+        raise AssertionError("interactive sumcheck: a tampered claim is accepted")
+    _, t_warm = sync_time(run)
+    out = {"log_n": INTERACTIVE_LOG_N, "rounds": len(rounds), "first_s": t_first, "warm_s": t_warm,
+           "launches": launches}
+    log(f"interactive sumcheck 2^{INTERACTIVE_LOG_N} bn254_fr: " + json.dumps(out))
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1621,8 +1855,17 @@ def main() -> None:
     k56 = k56_times(device, gen, rates, lrate)  # 21
     log(f"phases 17-21 (NTT, Merkle, FRI): {time.perf_counter() - t_new:.1f} s; "
         f"whole script so far {time.perf_counter() - t_script:.1f} s")
+
+    t_new = time.perf_counter()
+    check_dense_parity(device, rng)  # 22
+    dense_run = dense_path(device, rng, args.seed)
+    interactive_run = interactive_path(device, rng)
+    log(f"phase 22 (dense GKR, interactive sumcheck): {time.perf_counter() - t_new:.1f} s; "
+        f"whole script so far {time.perf_counter() - t_script:.1f} s")
     launches = {"sumcheck": sumcheck_runs[0]["launches"], "gkr": gkr_runs[0]["launches"],
-                "succinct": succinct_run["launches"], "ntt": ntt_run["launches"], "fri": fri_runs[0]["launches"]}
+                "succinct": succinct_run["launches"], "ntt": ntt_run["launches"], "fri": fri_runs[0]["launches"],
+                "dense": dense_run["launches"], "dense_succinct": dense_run["succinct"]["launches"],
+                "interactive": interactive_run["launches"]}
 
     log(json.dumps({"kernels": kernels_line(times, launches, k4_small, k4_main["kernels"], k56, rates)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -201,6 +201,8 @@ def test_import_without_jax():
         "import tpu_zk_torch.curves.fixed_base, tpu_zk_torch.curves.kernels, tpu_zk_torch.curves.msm_pippenger\n"
         "import tpu_zk_torch.ntt.ntt, tpu_zk_torch.ntt.sixstep, tpu_zk_torch.ntt.kernels, tpu_zk_torch.fri.fri\n"
         "import tpu_zk_torch.merkle.merkle, tpu_zk_torch.merkle.device_merkle, tpu_zk_torch.merkle.kernels\n"
+        "import tpu_zk_torch.gkr.protocol, tpu_zk_torch.gkr.wiring, tpu_zk_torch.gkr.fused_sparse\n"
+        "import tpu_zk_torch.sumcheck.interactive, tpu_zk_torch.shamir.shamir, tpu_zk_torch.apps.fib\n"
         "import chip_smoke\n"
         "assert not [m for m in sys.modules if m == 'tpu_zk' or m.startswith('tpu_zk.')], 'imported tpu_zk'\n"
     )

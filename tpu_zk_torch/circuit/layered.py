@@ -6,9 +6,11 @@ both inputs, a K3 add and a K1 multiply with a select, and an exact
 segment sum into the output slots (the reference's ``+=`` at
 ``output_index``, ``circuit/src/arithmetic_circuit.rs:65-109``).
 
-Only the sparse wiring form (:meth:`Circuit.gate_positions`) is ported; the
-dense ``add_i_and_mul_i_mle`` tables belong to the dense GKR pipeline,
-which the port does not have yet.
+The add_i/mul_i wiring indicators exist in two forms: sparse position lists
+(:meth:`Circuit.gate_positions`, the linear-time prover's) and the dense MLE
+tables of the reference's ``add_i_and_mul_i_mle`` (:126-163), packing
+``(out | left | right)`` with widths ``(i, i+1, i+1)`` (layer 0:
+``(1, 1, 1)``, :166-178), for the dense GKR pipeline.
 """
 
 from __future__ import annotations
@@ -18,8 +20,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..device import resolve
 from ..fields import arith
 from ..fields.arith import FieldCtx
+from ..poly.multilinear import MultilinearPolynomial
 
 ADD = 0
 MUL = 1
@@ -81,11 +85,13 @@ class Layer:
 
 @dataclass
 class CircuitEvaluationResult:
-    """The output layer as host ints, and every layer's Montgomery table on
-    the device (output layer first, inputs last).  Only the output layer is
-    brought to the host: ``tpu_zk``'s ``evaluate(materialize=False)``."""
+    """The output layer as host ints, every layer as host ints (only the
+    output layer when evaluated with ``materialize=False``), and every
+    layer's Montgomery table on the device; output layer first, inputs
+    last."""
 
     output: list[int]
+    layer_evaluations: list[list[int]]
     layer_tables: list[torch.Tensor]
 
 
@@ -96,10 +102,15 @@ class Circuit:
         self.ctx = ctx
         self.layers = layers
 
-    def evaluate(self, values, device=None) -> CircuitEvaluationResult:
+    def evaluate(self, values, materialize: bool = True, device=None) -> CircuitEvaluationResult:
         """``values``: a Montgomery ``[N, L]`` tensor (evaluated on its
         device), or host ints (evaluated on ``device``, by default the
-        package's default device)."""
+        package's default device).
+
+        ``materialize=False`` brings only the output layer to the host:
+        converting 2^24 limb rows to Python ints costs minutes, and the
+        protocols need only the output.
+        """
         ctx = self.ctx
         current = values if isinstance(values, torch.Tensor) else ctx.array(list(values), device=device)
         tables = [current]
@@ -108,7 +119,8 @@ class Circuit:
             tables.append(current)
         tables.reverse()
         output = ctx.to_ints(tables[0].reshape(-1, ctx.L))
-        return CircuitEvaluationResult(output=output, layer_tables=tables)
+        evaluations = [ctx.to_ints(t.reshape(-1, ctx.L)) for t in tables] if materialize else [output]
+        return CircuitEvaluationResult(output=output, layer_evaluations=evaluations, layer_tables=tables)
 
     def gate_positions(self, layer_index: int):
         """Sparse (positions, ops) of the wiring indicators for a layer,
@@ -121,6 +133,41 @@ class Circuit:
             | layer.rights.astype(np.int64)
         )
         return pos, layer.ops
+
+    def wiring_table(self, layer_index: int, device=None) -> torch.Tensor:
+        """The dense add_i and mul_i MLE tables of a layer as one
+        ``[2, 2^(3i+2), L]`` Montgomery tensor (add_i first), built on
+        ``device`` (by default the package's default device).
+
+        One zeroed tensor and one scatter of the Montgomery one at the
+        packed gate positions: the same integers as the reference's two
+        tables of 0/1, with no host ints and no stack of two tables.  Index
+        arithmetic is int64 (a depth-9 circuit's layer 8 holds 2^31 limbs).
+        """
+        ctx = self.ctx
+        device = resolve(device)
+        size = 1 << num_of_layer_variables(layer_index)
+        pos, ops = self.gate_positions(layer_index)
+        wired = (ops == ADD) | (ops == MUL)
+        rows = torch.from_numpy(ops[wired].astype(np.int64) * size + pos[wired]).to(device)
+        pair = torch.zeros((2, size, ctx.L), dtype=torch.int32, device=device)
+        pair.view(-1, ctx.L)[rows] = ctx.one_mont(device)
+        return pair
+
+    def add_i_and_mul_i_mle(self, layer_index: int, device=None):
+        """Dense indicator MLEs (reference arithmetic_circuit.rs:126-163), two
+        views of :meth:`wiring_table`.
+
+        Size 2^(3i+2) explodes for deep layers; the sparse representation in
+        :meth:`gate_positions` is the scalable path.
+        """
+        pair = self.wiring_table(layer_index, device)
+        return MultilinearPolynomial(self.ctx, pair[0]), MultilinearPolynomial(self.ctx, pair[1])
+
+    def w_i_polynomial(self, circuit_evaluation: CircuitEvaluationResult, layer_index: int) -> MultilinearPolynomial:
+        if layer_index >= len(circuit_evaluation.layer_tables):
+            raise IndexError("layer index out of bounds")
+        return MultilinearPolynomial(self.ctx, circuit_evaluation.layer_tables[layer_index])
 
 
 def _eval_layer(ctx: FieldCtx, current: torch.Tensor, layer: Layer) -> torch.Tensor:
@@ -149,3 +196,9 @@ def num_of_layer_variables(layer_index: int) -> int:
     if layer_index == 0:
         return 3
     return layer_index + 2 * (layer_index + 1)
+
+
+def convert_to_binary_and_to_decimal(layer_index, variable_a, variable_b, variable_c) -> int:
+    """Reference arithmetic_circuit.rs:180-196 packing, arithmetically."""
+    b_bits = layer_index + 1
+    return (variable_a << (2 * b_bits)) | (variable_b << b_bits) | variable_c

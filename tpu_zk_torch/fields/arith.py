@@ -71,12 +71,27 @@ class FieldCtx:
         return isinstance(other, FieldCtx) and self.name == other.name
 
     # -- host-side helpers ---------------------------------------------------
+    def to_limbs(self, x: int) -> np.ndarray:
+        """The canonical int ``x`` as [L] int32 limbs (host array)."""
+        return np.array(_limbs_of_int(x % self.p, self.L), np.int32)
+
+    def from_limbs(self, limbs) -> int:
+        return sum(int(v) << (LIMB_BITS * i) for i, v in enumerate(limbs))
+
     def to_mont_int(self, x: int) -> int:
         return (x % self.p) * self.R % self.p
+
+    def from_mont_int(self, x: int) -> int:
+        return x * self.Rinv % self.p
 
     def limbs(self, x: int, device, dtype: torch.dtype = torch.int32) -> torch.Tensor:
         """Cached [L] limb constant of the canonical int ``x`` on ``device``."""
         return _const(_limbs_of_int(x % self.p, self.L), torch.device(device), dtype)
+
+    @property
+    def zero(self) -> torch.Tensor:
+        """[L] zero limbs on the package's default device."""
+        return torch.zeros(self.L, dtype=torch.int32, device=resolve(None))
 
     def one_mont(self, device) -> torch.Tensor:
         """Cached [L] Montgomery one (R mod p) on ``device``."""
@@ -225,6 +240,38 @@ def mont_mul(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     CIOS for CPU tensors.
     """
     return _elementwise(kernels.mont_mul, ctx, a, b)
+
+
+def mont_sqr(ctx: FieldCtx, a: torch.Tensor) -> torch.Tensor:
+    return mont_mul(ctx, a, a)
+
+
+def scalar_mul(ctx: FieldCtx, a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """a[..., L] * scalar s[L] (both Montgomery)."""
+    return mont_mul(ctx, a, s)
+
+
+def inv_host(ctx: FieldCtx, x: int) -> int:
+    return pow(x, ctx.p - 2, ctx.p)
+
+
+def pow_mont(ctx: FieldCtx, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e elementwise (Montgomery in and out), by square and multiply from
+    the exponent's low bit: one K1 square a bit, one K1 product a set bit."""
+    result = ctx.one_mont(a.device).expand(a.shape).contiguous()
+    base = a
+    for i in range(e.bit_length()):
+        if (e >> i) & 1:
+            result = mont_mul(ctx, result, base)
+        if i + 1 < e.bit_length():
+            base = mont_sqr(ctx, base)
+    return result
+
+
+def inv_mont(ctx: FieldCtx, a: torch.Tensor) -> torch.Tensor:
+    """Elementwise modular inverse by Fermat (zero maps to zero); a in
+    Montgomery form."""
+    return pow_mont(ctx, a, ctx.p - 2)
 
 
 def redc_wide(ctx: FieldCtx, t: torch.Tensor) -> torch.Tensor:

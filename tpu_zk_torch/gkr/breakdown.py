@@ -1,7 +1,8 @@
 """Where the time of a warm GKR prove goes, stage by stage; with
-``--succinct``, where the time of a succinct GKR setup, prove and verify goes.
+``--succinct``, where the time of a succinct GKR setup, prove and verify goes;
+with ``--dense``, where the time of a dense GKR prove and verify goes.
 
-    python3 -m tpu_zk_torch.gkr.breakdown [--succinct] [--out FILE] [depth ...]
+    python3 -m tpu_zk_torch.gkr.breakdown [--succinct | --dense] [--out FILE] [depth ...]
 
 For each depth (default 24) of ``tree_sum_circuit`` over BN254 Fr, on random
 canonical inputs made from the depth as seed, on the CUDA card: a warm-up
@@ -19,6 +20,12 @@ open, the MSM's digits, sort, unit tables, K4a, K4b, window sums and
 window combine, the verifier's host points and pairing product), and
 beside the exclusive times the inclusive ones of the commit, the two opens,
 the layers and the circuit evaluation.
+
+With ``--dense`` (:func:`run_dense`; depths up to 9 fit an 80 GB card): a
+first and two warm calls each of ``protocol.prove`` and ``protocol.verify``,
+then one of each with the timers of ``DENSE_STAGES`` (the wiring build, the
+alpha/beta folds, the layer polynomial, the sumcheck rounds, the split-half
+evaluations, the verifier's expected layer claims).
 
 The stage timers wrap module attributes for the one timed prove and put
 them back after it; the prover itself carries no instrumentation.  On a
@@ -50,7 +57,7 @@ from ..poly import univariate
 from ..sumcheck import gkr_sumcheck
 from ..transcript import fiat_shamir
 from ..utils.convert import limbs_from_numpy
-from . import sparse
+from . import protocol, sparse, wiring
 
 # (owner, attribute, stage): the functions whose exclusive time is a stage
 STAGES = [
@@ -88,6 +95,19 @@ SUCCINCT_STAGES = STAGES + [
     (multilinear_kzg, "pairing_pairs", "verify: host G1/G2 points (Python ints)"),
     (multilinear_kzg, "pairing_product_is_one", "verify: native pairing product"),
     (sparse, "_verify_layers", "verify: layers"),
+]
+
+
+# the stages of the dense pipeline (gkr/protocol.py), prover and verifier, on top of the GKR ones
+DENSE_STAGES = STAGES + [
+    (layered.Circuit, "wiring_table", "wiring build (zeroed pair, scatter of ones)"),
+    (wiring.WiringPair, "alpha_beta_fold", "alpha/beta folds (K2 a point, K1, K3)"),
+    (protocol, "_layer_wiring", "layer wiring, rest (layer 0: partial evaluation at ra, K2)"),
+    (protocol, "layer_polynomial", "layer polynomial (tensor_add K3, tensor_mul K1, stacks)"),
+    (gkr_sumcheck, "prove", "sumcheck rounds, rest"),
+    (protocol, "split_half_evaluations", "split-half evaluations (K2)"),
+    (protocol, "expected_layer_claim", "verify: expected layer claim, rest (wiring evaluation folds, K2)"),
+    (gkr_sumcheck, "verify", "verify: sumcheck rounds, rest (host)"),
 ]
 
 
@@ -150,16 +170,22 @@ def _timed_runs(fn, n: int, sync) -> list[float]:
     return out
 
 
+def random_inputs(ctx, depth: int, device) -> torch.Tensor:
+    """2^depth random canonical BN254 Fr values in Montgomery form on
+    ``device``, made from the depth as seed."""
+    rng = np.random.default_rng(depth)
+    limbs = rng.integers(0, 1 << 16, size=(1 << depth, ctx.L), dtype=np.uint32)
+    limbs[:, -1] &= 0x2FFF  # top limb < 0x3000 < p's (0x3064): every value < p
+    return arith.to_mont(ctx, limbs_from_numpy(limbs, device))
+
+
 def run(depth: int, device="cuda") -> dict:
     device = torch.device(device)
     on_card = device.type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     ctx = field_ctx("bn254_fr")
-    rng = np.random.default_rng(depth)
-    limbs = rng.integers(0, 1 << 16, size=(1 << depth, ctx.L), dtype=np.uint32)
-    limbs[:, -1] &= 0x2FFF  # top limb < 0x3000 < p's (0x3064): every value < p
-    table = arith.to_mont(ctx, limbs_from_numpy(limbs, device))
+    table = random_inputs(ctx, depth, device)
     circuit = tree_sum_circuit(ctx, depth)
     timers = Timers(device)
     out: dict = {"depth": depth}
@@ -223,10 +249,7 @@ def run_succinct(depth: int, device="cuda", seed: int = 0) -> dict:
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     ctx = field_ctx("bn254_fr")
-    rng = np.random.default_rng(depth)
-    limbs = rng.integers(0, 1 << 16, size=(1 << depth, ctx.L), dtype=np.uint32)
-    limbs[:, -1] &= 0x2FFF  # top limb < 0x3000 < p's (0x3064): every value < p
-    table = arith.to_mont(ctx, limbs_from_numpy(limbs, device))
+    table = random_inputs(ctx, depth, device)
     circuit = tree_sum_circuit(ctx, depth)
     taus = trusted_setup.generate_values_for_tau("bn254", depth, seed=seed)
     out: dict = {"depth": depth}
@@ -259,10 +282,49 @@ def run_succinct(depth: int, device="cuda", seed: int = 0) -> dict:
     return out
 
 
+def run_dense(depth: int, device="cuda") -> dict:
+    """``protocol.prove`` and ``protocol.verify`` of ``tree_sum_circuit(depth)``
+    over BN254 Fr: first call, two warm calls, then one call each under the
+    ``DENSE_STAGES`` timers."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    ctx = field_ctx("bn254_fr")
+    table = random_inputs(ctx, depth, device)
+    circuit = tree_sum_circuit(ctx, depth)
+    out: dict = {"depth": depth}
+
+    sync()
+    t0 = time.perf_counter()
+    proof = protocol.prove(circuit, table)
+    sync()
+    out["prove_first_s"] = time.perf_counter() - t0
+    out["verify_first_s"] = _timed_runs(lambda: protocol.verify(circuit, proof, table), 1, sync)[0]
+    out["prove_warm_s"] = _timed_runs(lambda: protocol.prove(circuit, table), 2, sync)
+    out["verify_warm_s"] = _timed_runs(lambda: protocol.verify(circuit, proof, table), 2, sync)
+    for what, fn in (("prove", lambda: protocol.prove(circuit, table)),
+                     ("verify", lambda: protocol.verify(circuit, proof, table))):
+        sync()
+        t0 = time.perf_counter()
+        result, stages_s, calls, _ = staged(fn, device, DENSE_STAGES)
+        sync()
+        out[f"{what}_with_timers_s"] = time.perf_counter() - t0
+        out[f"{what}_stages_s"] = stages_s
+        out[f"{what}_stage_calls"] = calls
+    if result is not True:
+        raise AssertionError(f"depth {depth}: the dense proof does not verify")
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("depths", type=int, nargs="*", default=[24])
-    ap.add_argument("--succinct", action="store_true", help="break down the succinct path instead of plain GKR")
+    path = ap.add_mutually_exclusive_group()
+    path.add_argument("--succinct", action="store_true", help="break down the succinct path instead of plain GKR")
+    path.add_argument("--dense", action="store_true", help="break down the dense GKR pipeline (depth 9 at most)")
     ap.add_argument("--out", default=os.path.join("build", "gkr_breakdown.json"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -273,7 +335,7 @@ def main() -> None:
     print(card, flush=True)
     results = {"card": card, "runs": []}
     for depth in args.depths:
-        r = run_succinct(depth) if args.succinct else run(depth)
+        r = run_succinct(depth) if args.succinct else run_dense(depth) if args.dense else run(depth)
         results["runs"].append(r)
         print(json.dumps({k: v for k, v in r.items() if k not in ("layer_s_by_table_size", "top_device_ops_s")}),
               flush=True)

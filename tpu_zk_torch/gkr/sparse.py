@@ -190,7 +190,7 @@ def prove(circuit: Circuit, inputs, device=None) -> Proof:
     practical form at 2^20+ inputs) or a host int list (proved on
     ``device``, by default the package's default device).
     """
-    ev = circuit.evaluate(inputs, device)
+    ev = circuit.evaluate(inputs, materialize=False, device=device)
     claimed_sum, layer_proofs, wb_evaluations, wc_evaluations, _, _ = _prove_layers(circuit, ev, succinct=False)
     return Proof(
         circuit_output=ev.output,
@@ -217,7 +217,7 @@ def prove_succinct(circuit: Circuit, inputs, trusted_setup: TrustedSetup) -> Suc
     input_polynomial = MultilinearPolynomial(ctx, table)
     input_commitment = multilinear_kzg.commit_to_polynomial(input_polynomial, trusted_setup)
 
-    ev = circuit.evaluate(table)
+    ev = circuit.evaluate(table, materialize=False)
     output = ev.output
     claimed_sum, layer_proofs, wb_evaluations, wc_evaluations, rb_values, rc_values = _prove_layers(
         circuit, ev, succinct=True

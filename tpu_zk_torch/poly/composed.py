@@ -56,6 +56,13 @@ class ProductPolynomial:
         self.ctx = ctx
         self.stacked = stacked  # [k, N, L]
 
+    @classmethod
+    def from_mles(cls, polys: list[MultilinearPolynomial]) -> "ProductPolynomial":
+        n = polys[0].number_of_variables
+        if any(q.number_of_variables != n for q in polys):
+            raise ValueError("different number of variables")
+        return cls(polys[0].ctx, torch.stack([q.table for q in polys]))
+
     @property
     def degree(self) -> int:
         return self.stacked.shape[0]
@@ -70,8 +77,20 @@ class ProductPolynomial:
             t = fold(self.ctx, t, 0, _point(self.ctx, v, t.device))
         return self.ctx.to_ints(product_of_factors(self.ctx, t[:, 0]))
 
+    def partial_evaluate(self, var: int, value) -> "ProductPolynomial":
+        r = _point(self.ctx, value, self.stacked.device)
+        return ProductPolynomial(self.ctx, fold(self.ctx, self.stacked, var, r))
+
+    def multiply_polynomials_element_wise(self) -> MultilinearPolynomial:
+        if self.stacked.shape[0] < 2:
+            raise ValueError("more than one polynomial required for mul operation")
+        return MultilinearPolynomial(self.ctx, product_of_factors(self.ctx, self.stacked.unbind(0)))
+
     def convert_to_bytes(self) -> bytes:
-        return b"".join(MultilinearPolynomial(self.ctx, f).convert_to_bytes() for f in self.stacked)
+        return b"".join(f.convert_to_bytes() for f in self.mles())
+
+    def mles(self) -> list[MultilinearPolynomial]:
+        return [MultilinearPolynomial(self.ctx, f) for f in self.stacked]
 
 
 class SumPolynomial:

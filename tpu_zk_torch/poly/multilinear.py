@@ -72,6 +72,18 @@ def fold_chain(ctx: FieldCtx, table: torch.Tensor, rs: torch.Tensor) -> torch.Te
     return table
 
 
+def tensor_add(ctx: FieldCtx, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Outer sum: out[i*Nc + j] = b[i] + c[j] (evaluation_form.rs:108-124);
+    one K3 launch over the materialized [Nb*Nc, L] operands."""
+    return arith.add(ctx, b[:, None, :], c[None, :, :]).reshape(-1, ctx.L)
+
+
+def tensor_mul(ctx: FieldCtx, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Outer product: out[i*Nc + j] = b[i] * c[j] (evaluation_form.rs:126-143);
+    one K1 launch over the materialized [Nb*Nc, L] operands."""
+    return arith.mont_mul(ctx, b[:, None, :], c[None, :, :]).reshape(-1, ctx.L)
+
+
 def limbs_to_bytes_be(ctx: FieldCtx, plain_limbs: torch.Tensor) -> bytes:
     """[N, L] strict *plain* (non-Montgomery) limbs -> concatenated BE bytes.
 
@@ -103,6 +115,9 @@ class MultilinearPolynomial:
         return cls(ctx, ctx.array(list(values), device=device))
 
     # -- reference API -------------------------------------------------------
+    def __len__(self):
+        return self.table.shape[0]
+
     @property
     def number_of_variables(self) -> int:
         return int(self.table.shape[0]).bit_length() - 1
@@ -117,6 +132,21 @@ class MultilinearPolynomial:
             return self.ctx.to_ints(self.table[0])
         rs = torch.stack([self._as_scalar(v) for v in values])
         return self.ctx.to_ints(fold_chain(self.ctx, self.table, rs)[0])
+
+    def scalar_mul(self, value) -> "MultilinearPolynomial":
+        return MultilinearPolynomial(self.ctx, arith.mont_mul(self.ctx, self.table, self._as_scalar(value)))
+
+    def add(self, other: "MultilinearPolynomial") -> "MultilinearPolynomial":
+        self._same_length(other, "Polynomials must have same number of evaluations for addition")
+        return MultilinearPolynomial(self.ctx, arith.add(self.ctx, self.table, other.table))
+
+    def tensor_add(self, other: "MultilinearPolynomial") -> "MultilinearPolynomial":
+        self._same_length(other, "Different polynomial length")
+        return MultilinearPolynomial(self.ctx, tensor_add(self.ctx, self.table, other.table))
+
+    def tensor_mul(self, other: "MultilinearPolynomial") -> "MultilinearPolynomial":
+        self._same_length(other, "Different polynomial length")
+        return MultilinearPolynomial(self.ctx, tensor_mul(self.ctx, self.table, other.table))
 
     def sum(self) -> int:
         return self.ctx.to_ints(arith.sum_mod(self.ctx, self.table))
@@ -133,3 +163,14 @@ class MultilinearPolynomial:
         if isinstance(value, (int, np.integer)):
             return self.ctx.scalar(int(value), device=self.table.device)
         return value  # already a Montgomery [L] limb vector
+
+    def _same_length(self, other: "MultilinearPolynomial", message: str) -> None:
+        if len(self) != len(other):
+            raise ValueError(f"{message}: {len(self)} != {len(other)}")
+
+    def __eq__(self, other):
+        return (
+            isinstance(other, MultilinearPolynomial)
+            and len(self) == len(other)
+            and bool(torch.equal(self.table, other.table.to(self.table.device)))
+        )

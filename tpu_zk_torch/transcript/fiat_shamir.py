@@ -28,3 +28,13 @@ class Transcript:
     def random_challenge_as_field_element(self, ctx: FieldCtx) -> int:
         """Returns the challenge as a canonical python int in [0, p)."""
         return ctx.from_le_bytes_mod_order(self.sample_random_challenge())
+
+    # -- checkpoint/resume ----------------------------------------------------
+    def snapshot(self) -> bytes:
+        return self._hasher.snapshot()
+
+    @classmethod
+    def from_snapshot(cls, blob: bytes) -> "Transcript":
+        t = cls.__new__(cls)
+        t._hasher = Keccak256.from_snapshot(blob)
+        return t

@@ -122,6 +122,19 @@ class Keccak256:
         c._buf = self._buf
         return c
 
+    # -- checkpoint/resume ----------------------------------------------------
+    def snapshot(self) -> bytes:
+        """The sponge's state as bytes: the 200-byte state (25 little-endian
+        lanes), then the unabsorbed tail; the same blob as ``tpu_zk``'s."""
+        return self._state.astype("<u8").tobytes() + self._buf
+
+    @classmethod
+    def from_snapshot(cls, blob: bytes) -> "Keccak256":
+        k = cls()
+        k._state = np.frombuffer(blob[:200], dtype="<u8").astype(np.uint64)
+        k._buf = bytes(blob[200:])
+        return k
+
     def digest(self) -> bytes:
         c = self.copy()
         c._absorb(np.frombuffer(_pad(c._buf), np.uint8))
