@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run tpu_zk_torch's basic sumcheck, GKR, MSM, KZG, succinct GKR, NTT, FRI and dense GKR on one CUDA card and check its kernels.
+"""Run tpu_zk_torch's basic sumcheck, GKR, MSM, KZG, succinct GKR, NTT, FRI, dense GKR, device sponge and checkpoints on one CUDA card and check its kernels.
 
     python3 chip_smoke.py [--seed S]
 
@@ -8,14 +8,17 @@ Phases, in order; any failure raises and the exit code is nonzero:
 1. require a CUDA card; print ``nvidia-smi``'s name and power limit;
 2. build the kernels (one nvcc per source, side by side, sm_90a), the host
    Keccak and the host pairing engine, timed; print each kernel's registers
-   and spills as ptxas reported them; probe the card's rates of wide
+   and spills as ptxas reported them (K7's among them); time a launch of
+   an empty kernel (csrc/probe.cu), and the latency of one dependent logic
+   op (one thread's chain, K7's bound), and read the SM clock; probe the card's rates of wide
    (32 x 32 + 64 -> 64 bit) and of 32-bit multiply-adds, the two units of
    the field kernels' operation bounds (each bound takes the cheaper), and
    of 32-bit funnel shifts and logic ops, K5's; run field.cuh's even/odd
    product mont_mul_eo beside mont_mul in one probe kernel, all four
    fields, both equal to K1's plain version, and time both;
 3. K1 (Montgomery multiply) against its plain version, bit-exact, all four
-   fields: 2^20 random elements, every pair of edge values, a broadcast scalar;
+   fields: 2^20 random elements, every pair of edge values, a broadcast scalar,
+   and the non-canonical first operands R - 1 (2^256 - 1) and p times R^2;
 4. K2 (fold + block sums) against its plain version, bit-exact: batch rows
    B in {1, 4}, T from 1 to 2^23 with ragged block tails, r in {0, 1, p-1,
    random} (random only, above 2^16 pairs);
@@ -28,13 +31,20 @@ Phases, in order; any failure raises and the exit code is nonzero:
    from the CPU (plain versions), and both verify -- basic sumcheck at 2^12,
    GKR on a depth-6 mixed ADD/MUL circuit and on a depth-8 ADD tree;
 8. the basic-sumcheck main path over BN254 Fr at 2^24 (then at 2^20):
-   ``to_mont`` of a random table, ``Prover.prove`` and ``Verifier.verify``,
-   first call and warm; a tampered claim must fail; K1 and K2 must launch;
+   ``to_mont`` of a random table, ``Prover.prove`` (fused, the default) and
+   ``Verifier.verify``, first call and warm; a tampered claim must fail; K1
+   and K2 must launch, K7 once a round; ``prove(fused=False)`` gives the same
+   proof and transcript; a warm fused prove's round loop runs under
+   ``torch.cuda.set_sync_debug_mode("error")``; each path's host syncs
+   (the debug mode's warnings, by the place that synced) and times;
 9. the GKR main path over BN254 Fr, ``tree_sum_circuit`` of depth 24
    (2^24 random inputs, 2^24 - 1 gates), then depth 20: ``Circuit.evaluate``,
    ``sparse.prove`` and ``sparse.verify``, first call and warm; the output
    must equal the host's sum of the inputs; a tampered wb evaluation and a
-   tampered round coefficient must fail; K1, K2 and K3 must launch;
+   tampered round coefficient must fail; K1, K2 and K3 must launch, K7 once
+   a round; a ``fused=False`` prove gives the same JSON; the warm fused
+   prove's sumcheck phases run under the "error" sync debug mode; each
+   path's host syncs, by place, and times;
 10. each kernel's time beside its plain version's, at the sumcheck's 2^24
    shapes and at a depth-24 GKR round's (K3 on 2^25 elements, K1 on 2^24
    pairs, K2 at B = 4, T = 2^23), each output bit-exact against the plain
@@ -61,8 +71,9 @@ Phases, in order; any failure raises and the exit code is nonzero:
    K4a's unit R (16-128) and K4b's segment m (8-64) are swept;
 16. the succinct-GKR main path at depth 24: ``prove_succinct``, the proof to
    JSON and back, ``verify_succinct``, first call and warm, then under the
-   stage timers; K1-K4 must launch and no double-and-add MSM run; tampered
-   proofs fail;
+   stage timers; K1-K4 must launch, K7 once a round, and no double-and-add
+   MSM run; tampered proofs fail; a ``fused=False`` prove gives the same JSON;
+   each path's host syncs and times;
 17. K6 (NTT pass) against its plain version, bit-exact, both Fr fields, at
    every radix the plans use and small ones, the plans' last passes (C = 1),
    with and without pre-twiddle, scale and natural-order store, ragged column
@@ -93,7 +104,9 @@ Phases, in order; any failure raises and the exit code is nonzero:
    inputs, 511 gates; layer 8's wiring pair holds 2^26 entries, 8 GiB, the
    most an 80 GB card can fold at the next depth's 64 GiB):
    ``Circuit.evaluate``, ``protocol.prove`` and ``protocol.verify``, first
-   call and warm, then under ``gkr/breakdown.py``'s dense stage timers; the
+   call and warm, then under ``gkr/breakdown.py``'s dense stage timers; a
+   host-synced prove (the GKR sumcheck with ``fused=False``) of the same
+   JSON, each path's host syncs and times; K7 once a round; the
    output must equal the host's sum, the proof JSON ``sparse.prove``'s, a
    tampered wb evaluation and round coefficient must fail, K1-K3 must
    launch; the depth-9 tree of alternating ADD/MUL gates, its JSON equal
@@ -102,7 +115,16 @@ Phases, in order; any failure raises and the exit code is nonzero:
    ``sparse.prove_succinct``'s, a tampered KZG evaluation failing, K4a and
    K4b launching and no double-and-add MSM; the interactive sumcheck over
    2^20 entries, every round accepted, the oracle check true, a tampered
-   claim rejected.
+   claim rejected;
+23. K7 (the device sponge) against its plain version, bit-exact, over 10^4
+   random steps chained on one sponge (k <= 300 bytes, a squeeze with its
+   challenge or none, from ``--seed``), every step's state, tail, fill
+   level, digest and challenge; ``digest_to_mont`` of 2^256 - 1 and p; K7's
+   time a launch beside its plain version's and its bound; the 2^24 basic
+   sumcheck checkpointed after round 12 and the depth-20 sparse GKR after
+   layer 10, loaded and finished to the uninterrupted proofs; the field
+   counters over one 2^20 prove; ``roofline.render_markdown`` over phase 10's
+   and 21's kernels.
 
 The next-to-last line is ``{"kernels": [...]}``, the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -111,13 +133,19 @@ The next-to-last line is ``{"kernels": [...]}``, the last line
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
+
+from tpu_zk_torch.utils.roofline import EC_ADD_PRODUCTS, HBM_BYTES_PER_S, bound_ms, mont_mul_wide_mads, ops_ms
 
 FIELDS = ["bn254_fq", "bn254_fr", "bls12_381_fr", "bls12_381_fq"]
 MAIN_LOG_N = 24
@@ -153,6 +181,34 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def count_syncs(fn):
+    """(fn(), host syncs during it): torch's sync debug mode set to "warn"
+    while fn runs and its warnings counted, as a Counter of the places (file
+    and line of the Python call that synced; the repo's files relative to
+    its root) with the syncs at each; an empty Counter if none was seen."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    places = collections.Counter()
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            rel = os.path.relpath(w.filename, root)
+            places[f"{os.path.basename(w.filename) if rel.startswith('..') else rel}:{w.lineno}"] += 1
+    return out, places
+
+
+def sync_report(fused: collections.Counter, host: collections.Counter) -> dict:
+    """The host syncs of a fused and of a host-synced prove: their totals,
+    and each place that synced with its count, most first."""
+    return {"host_syncs_a_prove": {"fused": fused.total(), "host_synced": host.total()},
+            "host_sync_places": {"fused": dict(fused.most_common()), "host_synced": dict(host.most_common())}}
+
+
 def rand_canonical(ctx, shape, gen, device):
     """Random canonical limbs: the top limb below p's top limb keeps values < p."""
     t = torch.randint(0, 1 << 16, (*shape, ctx.L), generator=gen, device=device, dtype=torch.int32)
@@ -184,7 +240,16 @@ def check_k1(device, gen) -> None:
         for s in list(e) + [b[7]]:
             s = s.contiguous()
             check_equal(f"K1 {name} broadcast", kernels.mont_mul(ctx, a, s), kernels.mont_mul_plain(ctx, a, s))
-        log(f"K1 {name}: 2^20 random, 16 edge pairs, 5 broadcast scalars bit-exact")
+        # non-canonical first operands below R, as a digest is in digest_to_mont: R - 1 (2^256 - 1 on the
+        # 256-bit fields) and p, times R^2 -> (a mod p) R
+        big = torch.tensor([[0xFFFF] * ctx.L, [(ctx.p >> (16 * i)) & 0xFFFF for i in range(ctx.L)]], dtype=torch.int32,
+                           device=device)
+        r2 = ctx.limbs(ctx.R2, device)
+        got = kernels.mont_mul(ctx, big, r2)
+        check_equal(f"K1 {name} R - 1 and p times R^2", got, kernels.mont_mul_plain(ctx, big, r2))
+        if ctx.to_ints(got) != [((1 << (16 * ctx.L)) - 1) % ctx.p, 0]:
+            raise AssertionError(f"K1 {name}: (R - 1) R^2 and p R^2 do not reduce mod p")
+        log(f"K1 {name}: 2^20 random, 16 edge pairs, 5 broadcast scalars, R - 1 and p times R^2 bit-exact")
 
 
 def check_k2(device, gen) -> None:
@@ -334,10 +399,12 @@ def _wrappers() -> dict:
     from tpu_zk_torch.fields import kernels
     from tpu_zk_torch.merkle import kernels as merkle_kernels
     from tpu_zk_torch.ntt import kernels as ntt_kernels
+    from tpu_zk_torch.transcript import kernels as transcript_kernels
 
     return {"mont_mul": kernels.mont_mul, "fold": kernels.fold, "addsub": kernels.addsub,
             "msm_buckets": curve_kernels.msm_buckets, "msm_bucket_reduce": curve_kernels.msm_bucket_reduce,
-            "keccak_rows": merkle_kernels.keccak_rows, "dif_pass": ntt_kernels.dif_pass}
+            "keccak_rows": merkle_kernels.keccak_rows, "dif_pass": ntt_kernels.dif_pass,
+            "sponge_step": transcript_kernels.sponge_step}
 
 
 def reset_launches() -> None:
@@ -349,8 +416,39 @@ def read_launches() -> dict:
     return {name: wrapper.launches for name, wrapper in _wrappers().items()}
 
 
+@contextlib.contextmanager
+def sync_error_in_fused_rounds(name: str):
+    """Every call of the fused round loop ``sumcheck.fused.<name>`` runs under
+    torch.cuda.set_sync_debug_mode("error"), so a host sync inside it
+    raises; the mode before it comes back after each call (a "warn" count
+    around the prove goes on outside the loops)."""
+    from tpu_zk_torch.sumcheck import fused
+
+    saved = getattr(fused, name)
+
+    def strict(*args):
+        before = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return saved(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+
+    setattr(fused, name, strict)
+    try:
+        yield
+    finally:
+        setattr(fused, name, saved)
+
+
+def same_sumcheck_proofs(a, b) -> bool:
+    return (a.initial_claimed_sum == b.initial_claimed_sum
+            and [u.to_ints() for u in a.round_univariate_polynomials] == [u.to_ints() for u in b.round_univariate_polynomials])
+
+
 def main_path(device, rng, log_n: int) -> dict:
-    """to_mont + prove + verify of a random 2^log_n BN254 Fr table."""
+    """to_mont + prove + verify of a random 2^log_n BN254 Fr table, with the
+    fused prover (the default) and the host-synced one (fused=False)."""
     from tpu_zk_torch.fields import arith
     from tpu_zk_torch.fields.arith import field_ctx
     from tpu_zk_torch.poly.multilinear import MultilinearPolynomial
@@ -361,7 +459,9 @@ def main_path(device, rng, log_n: int) -> dict:
 
     reset_launches()
     poly, t_mont = sync_time(lambda: MultilinearPolynomial(ctx, arith.to_mont(ctx, plain)))
-    proof, t_prove = sync_time(lambda: Prover(poly).prove())
+    prover = Prover(poly)
+    proof, t_prove = sync_time(prover.prove)
+    k7_prove = read_launches()["sponge_step"]
     ok, t_verify = sync_time(lambda: Verifier.init().verify(proof))
     launches = read_launches()
 
@@ -374,29 +474,49 @@ def main_path(device, rng, log_n: int) -> dict:
     for name in ("mont_mul", "fold"):  # basic sumcheck adds and subtracts nothing elementwise
         if launches[name] == 0:
             raise AssertionError(f"main path at 2^{log_n} never launched kernel {name}")
+    if k7_prove != log_n:
+        raise AssertionError(f"fused 2^{log_n} prove launched K7 {k7_prove} times, not once a round")
     proof.initial_claimed_sum += 1
     if Verifier.init().verify(proof):
         raise AssertionError(f"2^{log_n} proof with a tampered claim verifies")
     proof.initial_claimed_sum -= 1
 
-    warm_proof, t_prove_warm = sync_time(lambda: Prover(poly).prove())
+    host_prover = Prover(poly)
+    host_proof, t_host_first = sync_time(lambda: host_prover.prove(fused=False))
+    if not same_sumcheck_proofs(proof, host_proof):
+        raise AssertionError(f"2^{log_n}: the fused and host-synced proofs differ")
+    if prover.transcript.sample_random_challenge() != host_prover.transcript.sample_random_challenge():
+        raise AssertionError(f"2^{log_n}: the transcripts after the fused and host-synced proofs differ")
+
+    with sync_error_in_fused_rounds("fused_basic_prove"):  # a host sync in a warm fused round loop raises
+        warm_proof, t_prove_warm = sync_time(lambda: Prover(poly).prove())
     ok, t_verify_warm = sync_time(lambda: Verifier.init().verify(warm_proof))
-    if not ok:
-        raise AssertionError(f"2^{log_n} warm proof does not verify")
+    if not ok or not same_sumcheck_proofs(proof, warm_proof):
+        raise AssertionError(f"2^{log_n} warm proof differs or does not verify")
+    _, t_host_warm = sync_time(lambda: Prover(poly).prove(fused=False))
+    (_, syncs_fused), t_fused_counted = sync_time(lambda: count_syncs(lambda: Prover(poly).prove()))
+    (_, syncs_host), t_host_counted = sync_time(lambda: count_syncs(lambda: Prover(poly).prove(fused=False)))
     out = {
         "log_n": log_n, "to_mont_s": t_mont, "prove_first_s": t_prove, "verify_first_s": t_verify,
         "prove_warm_s": t_prove_warm, "verify_warm_s": t_verify_warm, "launches": launches,
+        "k7_launches_a_prove": k7_prove, "host_synced_prove_first_s": t_host_first,
+        "host_synced_prove_warm_s": t_host_warm, "warm_round_loop_ran_under_sync_error_mode": True,
+        **sync_report(syncs_fused, syncs_host),
+        "prove_counting_syncs_s": {"fused": t_fused_counted, "host_synced": t_host_counted},
     }
     log(f"main path 2^{log_n} bn254_fr: " + json.dumps(out))
     return out
 
 
 def gkr_main_path(device, rng, depth: int) -> dict:
-    """evaluate + prove + verify of tree_sum_circuit(depth) on random inputs."""
+    """evaluate + prove + verify of tree_sum_circuit(depth) on random inputs,
+    fused (the default), then a host-synced prove (fused=False) of the same
+    bytes."""
     from tpu_zk_torch.circuit.layered import tree_sum_circuit
     from tpu_zk_torch.fields import arith
     from tpu_zk_torch.fields.arith import field_ctx
     from tpu_zk_torch.gkr import sparse
+    from tpu_zk_torch.utils.serialize import gkr_proof_to_json
 
     ctx = field_ctx("bn254_fr")
     plain, want_sum = random_table(ctx, rng, depth, device)
@@ -420,6 +540,8 @@ def gkr_main_path(device, rng, depth: int) -> dict:
     for name in ("mont_mul", "fold", "addsub"):  # plain GKR runs no MSM
         if launches[name] == 0:
             raise AssertionError(f"GKR main path at depth {depth} never launched kernel {name}")
+    if launches["sponge_step"] != depth * (depth + 1):  # one a round: layer i's two phases of i + 1 rounds
+        raise AssertionError(f"GKR depth {depth}: K7 launched {launches['sponge_step']} times, not once a round")
     del ev
     proof.wb_evaluations[0] += 1
     if sparse.verify(circuit, proof, table):
@@ -431,21 +553,26 @@ def gkr_main_path(device, rng, depth: int) -> dict:
         raise AssertionError(f"GKR depth {depth} proof with a tampered round coefficient verifies")
 
     _, t_eval_warm = sync_time(lambda: circuit.evaluate(table, materialize=False))
-    warm_proof, t_prove_warm = sync_time(lambda: sparse.prove(circuit, table))
+    with sync_error_in_fused_rounds("fused_gkr_sumcheck_prove"):  # a host sync in a warm fused phase raises
+        (warm_proof, syncs_fused), t_prove_warm = sync_time(lambda: count_syncs(lambda: sparse.prove(circuit, table)))
     ok, t_verify_warm = sync_time(lambda: sparse.verify(circuit, warm_proof, table))
     if not ok:
         raise AssertionError(f"GKR depth {depth} warm proof does not verify")
+    (host_proof, syncs_host), t_host = sync_time(lambda: count_syncs(lambda: sparse.prove(circuit, table, fused=False)))
+    if gkr_proof_to_json(host_proof, ctx.name) != gkr_proof_to_json(warm_proof, ctx.name):
+        raise AssertionError(f"GKR depth {depth}: the fused and host-synced proofs differ")
     out = {
         "depth": depth, "gates": (1 << depth) - 1, "to_mont_s": t_mont, "evaluate_first_s": t_eval,
         "prove_first_s": t_prove, "verify_first_s": t_verify, "evaluate_warm_s": t_eval_warm,
         "prove_warm_s": t_prove_warm, "verify_warm_s": t_verify_warm,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+        "host_synced_prove_s": t_host, "warm_phases_ran_under_sync_error_mode": True,
+        **sync_report(syncs_fused, syncs_host),
     }
     log(f"GKR main path depth {depth} bn254_fr: " + json.dumps(out))
     return out
 
 
-HBM_BYTES_PER_S = 3.35e12  # the H100's published device-memory rate
 K4_CHECK_LOG_N = 12
 BLS_TIMED_LOG_N = 16  # K4 over BLS12-381 is timed at 2^16 points
 PLAIN_CHUNK_UNITS = 1 << 17  # K4a's plain version over a 2^24 launch runs this many units at a time
@@ -485,19 +612,54 @@ def mad_rates(device) -> tuple[float, float]:
     return wide, narrow
 
 
-def ops_ms(wide_mads: float, rates: tuple[float, float]) -> dict:
-    """The least milliseconds for the multiply-adds of Montgomery products in
-    each unit: as wide multiply-adds at the probed wide rate, and as 32-bit
-    ones (two a wide one: the lo and hi halves) at the probed 32-bit rate."""
-    return {"wide": wide_mads / rates[0] * 1e3, "32-bit": 2 * wide_mads / rates[1] * 1e3}
+LAUNCH_PROBE_LAUNCHES = 2000
+LATENCY_PROBE_STEPS = 1 << 20  # dependent steps of one funnel shift and one logic op in the latency probe
 
 
-def bound_ms(n_bytes: float, wide_mads: float, rates: tuple[float, float]) -> tuple[float, str]:
-    """The least milliseconds the card could take: the larger of the bytes
-    over its memory rate and the operations in the cheaper of the two units
-    (so that a kernel of 32-bit chains cannot read above its bound)."""
-    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, min(ops_ms(wide_mads, rates).values())
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+def launch_latency(device) -> dict:
+    """Phase 2: what one launch costs by itself: csrc/probe.cu's empty kernel
+    launched LAUNCH_PROBE_LAUNCHES times back to back through ctypes, timed
+    by CUDA events (the device's time from the first launch to the last) and
+    by the host's clock (the Python call and the enqueue); the latency of one
+    dependent 32-bit funnel shift or logic op (tzk_latency_probe: one
+    thread's chain of 2 LATENCY_PROBE_STEPS of them, event-timed), in which
+    K7's bound is counted; and the SM clock."""
+    import ctypes
+
+    from tpu_zk_torch import _build
+
+    lib = _build.kernel_library()
+
+    def launches():
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        for _ in range(LAUNCH_PROBE_LAUNCHES):
+            rc = lib.tzk_empty_probe(stream)
+            if rc != 0:
+                raise RuntimeError(f"tzk_empty_probe: cudaError_t {rc}")
+
+    device_ms = event_ms(launches, 3) / LAUNCH_PROBE_LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    launches()
+    host_ms = (time.perf_counter() - t0) * 1e3 / LAUNCH_PROBE_LAUNCHES
+    torch.cuda.synchronize()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm", "--format=csv,noheader,nounits"],
+                         check=True, capture_output=True, text=True, timeout=60)
+    max_mhz, now_mhz = (float(v) for v in smi.stdout.strip().splitlines()[0].split(","))
+    chain_out = torch.empty(1, dtype=torch.int32, device=device)
+
+    def chain():
+        rc = lib.tzk_latency_probe(ctypes.c_void_p(chain_out.data_ptr()), LATENCY_PROBE_STEPS, 7, 0x9E3779B1,
+                                   ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if rc != 0:
+            raise RuntimeError(f"tzk_latency_probe: cudaError_t {rc}")
+
+    dependent_op_s = event_ms(chain, 3) / 1e3 / (2 * LATENCY_PROBE_STEPS)
+    out = {"launch_ms": max(device_ms, host_ms), "device_ms_a_launch": device_ms, "host_ms_a_launch": host_ms,
+           "dependent_op_ns": dependent_op_s * 1e9, "dependent_op_cycles_at_max_clock": dependent_op_s * max_mhz * 1e6,
+           "sm_clock_max_mhz": max_mhz, "sm_clock_now_mhz": now_mhz}
+    log("launch probe: " + json.dumps(out))
+    return out
 
 
 PROBE_CHAIN = 64  # Montgomery products a thread of the product probe runs in series
@@ -548,16 +710,6 @@ def product_probe(device) -> None:
             f"other; mont_mul {ms[0]} ms, mont_mul_eo {ms[1]} ms")
 
 
-def mont_mul_wide_mads(ctx) -> int:
-    """Wide multiply-adds of one CIOS product of N = L/2 32-bit limbs: N^2
-    for a * b and N^2 for the reduction's m * p."""
-    return 2 * (ctx.L // 2) ** 2
-
-
-# Montgomery products that one complete addition needs: Algorithm 7 has 12
-# products of two variables; its two by the constant b3 = 3b (9 on BN254, 12 on
-# BLS12-381) are four modular additions each in csrc/ec.cuh.
-EC_ADD_PRODUCTS = 12
 C_SWEEP = (13, 14, 15, 16)  # window bits timed at 2^24 (the rule picks 16)
 UNIT_SWEEP = (16, 32, 64, 128)  # entries a K4a thread sums (R), timed at 2^24
 SEGMENT_SWEEP = (8, 16, 32, 64)  # buckets a K4b thread reduces (m), timed at 2^24
@@ -961,8 +1113,9 @@ def msm_alone(device, rng, setup, taus, rates: tuple) -> dict:
 
 def succinct_main_path(device, rng, setup, setup_times: dict) -> dict:
     """Phases 14 and 16: prove_succinct, to JSON, verify_succinct of
-    tree_sum_circuit(setup.num_vars) on random inputs, first call and warm,
-    then once under the stage timers."""
+    tree_sum_circuit(setup.num_vars) on random inputs, first call and warm
+    (fused, the default), a host-synced prove (fused=False) of the same
+    bytes, then once under the stage timers."""
     from tpu_zk_torch.circuit.layered import tree_sum_circuit
     from tpu_zk_torch.curves import ec_device
     from tpu_zk_torch.fields import arith
@@ -1011,12 +1164,20 @@ def succinct_main_path(device, rng, setup, setup_times: dict) -> dict:
         if sparse.verify_succinct(circuit, tampered, setup):
             raise AssertionError(f"succinct GKR depth {depth}: a proof with a tampered {what} verifies")
 
-    warm, t_prove_warm = sync_time(lambda: sparse.prove_succinct(circuit, table, setup))
+    if launches["sponge_step"] != depth * (depth + 1):
+        raise AssertionError(f"succinct GKR depth {depth}: K7 launched {launches['sponge_step']} times, not once a round")
+
+    (warm, syncs_fused), t_prove_warm = sync_time(lambda: count_syncs(lambda: sparse.prove_succinct(circuit, table, setup)))
     ok, t_verify_warm = sync_time(lambda: sparse.verify_succinct(circuit, warm, setup))
     if not ok or succinct_proof_to_json(warm, ctx.name) != proof_json:
         raise AssertionError(f"succinct GKR depth {depth}: the warm proof differs or does not verify")
     peak = torch.cuda.max_memory_allocated() / 2**30
     del warm
+    (host, syncs_host), t_host = sync_time(
+        lambda: count_syncs(lambda: sparse.prove_succinct(circuit, table, setup, fused=False)))
+    if succinct_proof_to_json(host, ctx.name) != proof_json:
+        raise AssertionError(f"succinct GKR depth {depth}: the fused and host-synced proofs differ")
+    del host
     (_, prove_stages, prove_calls, prove_each), t_prove_timers = sync_time(
         lambda: breakdown.staged(lambda: sparse.prove_succinct(circuit, table, setup), device, breakdown.SUCCINCT_STAGES))
     (_, verify_stages, _, _), t_verify_timers = sync_time(
@@ -1026,6 +1187,7 @@ def succinct_main_path(device, rng, setup, setup_times: dict) -> dict:
         "depth": depth, "gates": (1 << depth) - 1, **setup_times, "prove_first_s": t_prove, "to_json_s": t_json,
         "proof_json_bytes": len(proof_json), "verify_first_s": t_verify, "prove_warm_s": t_prove_warm,
         "verify_warm_s": t_verify_warm, "peak_mem_gib": peak, "launches": launches,
+        "host_synced_prove_s": t_host, **sync_report(syncs_fused, syncs_host),
         "prove_with_timers_s": t_prove_timers, "prove_whole_s": breakdown.whole_s(prove_each), "prove_stages_s": prove_stages,
         "prove_stage_calls": prove_calls,
         "verify_with_timers_s": t_verify_timers, "verify_stages_s": verify_stages,
@@ -1089,13 +1251,15 @@ def kernel_times(device, gen) -> dict:
     return out
 
 
-def kernels_line(times: dict, launches: dict, k4_small: dict, k4_main: dict, k56: dict, rates: tuple) -> list[dict]:
+def kernels_line(times: dict, launches: dict, k4_small: dict, k4_main: dict, k56: dict, k7: dict,
+                 rates: tuple) -> list[dict]:
     """The {"kernels": [...]} rows.  K1-K3: times at a depth-24 GKR round's
     shapes, the basic sumcheck's beside them.  K4a, K4b: times at the 2^24
     MSM's shape (K4a: its bucket passes added up, its plain version run
     PLAIN_CHUNK_UNITS units at a time, one call cannot hold its slots);
     both kernels' times at 2^12 points beside them.  K5, K6: time per launch over one 2^24-leaf tree and
-    one 2^24 forward transform.  ``launches`` is the depth-24 succinct
+    one 2^24 forward transform.  K7: time per launch of a GKR round's sponge step, a basic round's beside
+    it, its plain version on the CPU, its bound without and with the launch probe's time.  ``launches`` is the depth-24 succinct
     path's count for K1-K4 and the 2^24 NTT -> FRI path's for K5 and K6;
     every path's count is beside it, phase 22's dense, dense succinct and
     interactive paths among them.  No PyTorch call computes any of these
@@ -1154,6 +1318,17 @@ def kernels_line(times: dict, launches: dict, k4_small: dict, k4_main: dict, k56
         rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                      "launches": launches["fri"][name], "launches_by_path": {p: n[name] for p, n in launches.items()},
                      "library_ms": None, **row})
+    gkr_round = k7["GKR round"]
+    rows.append({"name": "sponge_step", "route": "cuda", "source": "tpu_zk_torch/csrc/sponge.cu",
+                 "replaces": "tpu_zk/transcript/device_fs.py:79, tpu_zk/transcript/device_fs.py:314, "
+                             "tpu_zk/transcript/device_fs.py:341, tpu_zk/transcript/device_fs.py:356",
+                 "launches": launches["succinct"]["sponge_step"],
+                 "launches_by_path": {p: n["sponge_step"] for p, n in launches.items()},
+                 "max_abs_err": k7["max_abs_err"], "ms": gkr_round["ms"], "plain_ms": gkr_round["plain_ms"],
+                 "bound_ms": gkr_round["bound_ms"], "bound_by": gkr_round["bound_by"], "library_ms": None,
+                 "shape": "one GKR round's step: 96 bytes, a squeeze and its challenge",
+                 "launch_ms": gkr_round["launch_ms"], "bound_with_launch_ms": gkr_round["bound_with_launch_ms"],
+                 "basic_round": k7["basic round"], "plain_is": "the plain version on the CPU (its tensors' device)"})
     return rows
 
 
@@ -1635,10 +1810,25 @@ def check_dense_parity(device, rng) -> None:
         f"CUDA proof JSON == CPU proof JSON ({len(jsons[0])} and {len(succinct_jsons[0])} bytes), all verify")
 
 
+@contextlib.contextmanager
+def host_synced_gkr_sumcheck():
+    """gkr_sumcheck.prove with fused=False while the block runs: the dense
+    pipeline (gkr/protocol.py) calls it with the default, as tpu_zk's does."""
+    from tpu_zk_torch.sumcheck import gkr_sumcheck
+
+    saved = gkr_sumcheck.prove
+    gkr_sumcheck.prove = lambda *a, **k: saved(*a, **{**k, "fused": False})
+    try:
+        yield
+    finally:
+        gkr_sumcheck.prove = saved
+
+
 def dense_path(device, rng, seed: int) -> dict:
     """Phase 22: evaluate, dense prove and verify of tree_sum_circuit(9) on
-    random inputs, first call and warm, then under the dense stage timers;
-    the alternating ADD/MUL tree; dense prove_succinct and verify_succinct."""
+    random inputs, first call and warm (fused, the default), a host-synced
+    prove of the same bytes, then under the dense stage timers; the
+    alternating ADD/MUL tree; dense prove_succinct and verify_succinct."""
     from tpu_zk_torch.circuit.layered import tree_sum_circuit
     from tpu_zk_torch.curves import ec_device
     from tpu_zk_torch.fields import arith
@@ -1685,11 +1875,19 @@ def dense_path(device, rng, seed: int) -> dict:
     if protocol.verify(circuit, proof, table):
         raise AssertionError(f"dense GKR depth {depth} proof with a tampered round coefficient verifies")
 
+    rounds = sum(len(p.round_univariate_polynomials) for p in proof.sumcheck_proofs)
+    if launches["sponge_step"] != rounds:
+        raise AssertionError(f"dense GKR depth {depth}: K7 launched {launches['sponge_step']} times in {rounds} rounds")
+
     _, t_eval_warm = sync_time(lambda: circuit.evaluate(table))
-    warm, t_prove_warm = sync_time(lambda: protocol.prove(circuit, table))
+    (warm, syncs_fused), t_prove_warm = sync_time(lambda: count_syncs(lambda: protocol.prove(circuit, table)))
     ok, t_verify_warm = sync_time(lambda: protocol.verify(circuit, warm, table))
     if not ok or gkr_proof_to_json(warm, ctx.name) != dense_json:
         raise AssertionError(f"dense GKR depth {depth}: the warm proof differs or does not verify")
+    with host_synced_gkr_sumcheck():
+        (host, syncs_host), t_host = sync_time(lambda: count_syncs(lambda: protocol.prove(circuit, table)))
+    if gkr_proof_to_json(host, ctx.name) != dense_json:
+        raise AssertionError(f"dense GKR depth {depth}: the fused and host-synced proofs differ")
     (_, prove_stages, prove_calls, _), t_prove_timers = sync_time(
         lambda: breakdown.staged(lambda: protocol.prove(circuit, table), device, breakdown.DENSE_STAGES))
     (ok, verify_stages, verify_calls, _), t_verify_timers = sync_time(
@@ -1739,6 +1937,7 @@ def dense_path(device, rng, seed: int) -> dict:
         "depth": depth, "gates": (1 << depth) - 1, "evaluate_first_s": t_eval, "prove_first_s": t_prove,
         "verify_first_s": t_verify, "evaluate_warm_s": t_eval_warm, "prove_warm_s": t_prove_warm,
         "verify_warm_s": t_verify_warm, "peak_mem_gib": peak, "launches": launches,
+        "host_synced_prove_s": t_host, **sync_report(syncs_fused, syncs_host),
         "proof_json_bytes": len(dense_json), "prove_with_timers_s": t_prove_timers, "prove_stages_s": prove_stages,
         "prove_stage_calls": prove_calls, "verify_with_timers_s": t_verify_timers, "verify_stages_s": verify_stages,
         "verify_stage_calls": verify_calls,
@@ -1792,6 +1991,227 @@ def interactive_path(device, rng) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: K7 (the device sponge), checkpoints, counters, the roofline table
+# ---------------------------------------------------------------------------
+
+K7_STEPS = 10_000  # random steps chained on one sponge, K7 against its plain version
+K7_MAX_DATA = 300  # data bytes a step, at most
+K7_TIMED = 1000  # launches a timed K7 step
+CHECKPOINT_ROUND = 12  # the 2^24 basic sumcheck is saved after this round
+CHECKPOINT_DEPTH, CHECKPOINT_LAYER = 20, 10  # the sparse GKR prove saved after this layer
+COUNTERS_LOG_N = 20
+
+
+def k7_raw_ms(ctx, sponge, data, digest, chal) -> float:
+    """K7's time a launch with its ctypes arguments made once, launched
+    K7_TIMED times in a row: the kernel without the wrapper's Python."""
+    import ctypes
+
+    from tpu_zk_torch import _build
+    from tpu_zk_torch.fields.kernels import _launch_args
+
+    fn = _build.kernel_library().tzk_sponge_step
+    p32, n0inv = _launch_args(ctx)
+    r2 = (ctypes.c_uint32 * 8)(*[(ctx.R2 >> (32 * i)) & 0xFFFFFFFF for i in range(8)])
+    args = [ctypes.c_void_p(t.data_ptr()) for t in (sponge.state, sponge.buf, sponge.pos, data)]
+    args += [ctypes.c_int64(data.shape[0]), ctypes.c_void_p(digest.data_ptr()), ctypes.c_void_p(chal.data_ptr()),
+             ctypes.c_int(ctx.L), p32, n0inv, r2, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)]
+
+    def launches():
+        for _ in range(K7_TIMED):
+            fn(*args)
+        if fn(*args) != 0:
+            raise RuntimeError("tzk_sponge_step refused a launch")
+
+    return event_ms(launches, 3) / (K7_TIMED + 1)
+
+
+def check_k7(device, seed: int, launch: dict) -> dict:
+    """Phase 23, first: K7 against its plain version, bit-exact, on K7_STEPS
+    random steps chained on one sponge from the seed (k <= K7_MAX_DATA data
+    bytes, a squeeze with its BN254 Fr challenge or none): every step's
+    state, tail, fill level, digest and challenge.  digest_to_mont (K1) of the
+    digests 2^256 - 1 and p.  K7's time a launch at a basic-sumcheck round's
+    step (64 bytes and a squeeze) and a GKR round's (96 bytes and a squeeze),
+    beside the plain version's (on the CPU) and the bound: the step's
+    permutations, each a chain of PERMUTATION_DEPTH dependent instructions
+    at the latency phase 2 probed, and the launch probe's time apart."""
+    from tpu_zk_torch.fields.arith import field_ctx
+    from tpu_zk_torch.transcript import device_fs
+    from tpu_zk_torch.transcript import kernels as tk
+    from tpu_zk_torch.utils.roofline import PERMUTATION_DEPTH, sponge_permutations, sponge_step_bound_ms
+
+    ctx = field_ctx("bn254_fr")
+    rng = np.random.default_rng(seed + 23)
+    ks = rng.integers(0, K7_MAX_DATA + 1, size=K7_STEPS)
+    squeezes = rng.integers(0, 2, size=K7_STEPS).astype(bool)
+    offs = np.concatenate([[0], np.cumsum(ks)]).tolist()
+    pool_np = rng.integers(0, 256, size=offs[-1], dtype=np.uint8)
+    records = []  # the kernel's run, then the plain version's
+    for dev in (device, torch.device("cpu")):
+        pool = torch.from_numpy(pool_np).to(dev)
+        sponge = device_fs.DeviceSponge.fresh(dev)
+        states = torch.empty((K7_STEPS, 25), dtype=torch.int64, device=dev)
+        bufs = torch.empty((K7_STEPS, 136), dtype=torch.uint8, device=dev)
+        poss = torch.empty((K7_STEPS, 1), dtype=torch.int32, device=dev)
+        digests = torch.zeros((K7_STEPS, 32), dtype=torch.uint8, device=dev)
+        chals = torch.zeros((K7_STEPS, ctx.L), dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        for i in range(K7_STEPS):
+            data = pool[offs[i] : offs[i + 1]]
+            if squeezes[i]:
+                tk.sponge_step(sponge.state, sponge.buf, sponge.pos, data, digests[i], chals[i], ctx)
+            else:
+                tk.sponge_step(sponge.state, sponge.buf, sponge.pos, data)
+            states[i], bufs[i], poss[i] = sponge.state, sponge.buf, sponge.pos
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        records.append(([t.cpu() for t in (states.view(torch.uint8), bufs, poss, digests, chals)],
+                        time.perf_counter() - t0))
+    (kernel_out, kernel_s), (plain_out, plain_s) = records
+    err = 0
+    for what, got, want in zip(("states", "tails", "fill levels", "digests", "challenges"), kernel_out, plain_out):
+        err = max(err, max_err(got, want))
+        check_equal(f"K7 {K7_STEPS} chained steps: {what}", got, want)
+    perms, _ = sponge_permutations(0, zip(ks.tolist(), squeezes.tolist()))
+    log(f"K7: {K7_STEPS} chained steps ({int(ks.sum())} bytes, {int(squeezes.sum())} squeezes, {perms} permutations) "
+        f"bit-exact against the plain version; card {kernel_s:.3f} s, plain (CPU) {plain_s:.1f} s")
+
+    for value in ((1 << 256) - 1, ctx.p):
+        digest = torch.tensor(list(value.to_bytes(32, "little")), dtype=torch.uint8, device=device)
+        got = device_fs.digest_to_mont(ctx, digest)
+        check_equal(f"digest_to_mont({hex(value)})", got, device_fs.digest_to_mont(ctx, digest.cpu()).to(device))
+        if ctx.to_ints(got) != value % ctx.p:
+            raise AssertionError(f"digest_to_mont({hex(value)}) is not the digest mod p")
+    log("digest_to_mont of 2^256 - 1 and p on the card (K1): equal to the plain version and to the digest mod p")
+
+    out = {"max_abs_err": err, "chain_card_s": kernel_s, "chain_plain_s": plain_s}
+    dependent_op_s = launch["dependent_op_ns"] / 1e9
+    for what, k in (("basic round", 2 * 32), ("GKR round", 3 * 32)):
+        data = torch.from_numpy(pool_np[:k].copy()).to(device)
+        sponge = device_fs.DeviceSponge.fresh(device)
+        digest = torch.empty(32, dtype=torch.uint8, device=device)
+        chal = torch.empty(ctx.L, dtype=torch.int32, device=device)
+        ms = event_ms(lambda: tk.sponge_step(sponge.state, sponge.buf, sponge.pos, data, digest, chal, ctx), K7_TIMED)
+        raw_ms = k7_raw_ms(ctx, sponge, data, digest, chal)
+        cpu = device_fs.DeviceSponge.fresh("cpu")
+        cpu_data, cpu_digest, cpu_chal = data.cpu(), digest.cpu(), chal.cpu()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            tk.sponge_step(cpu.state, cpu.buf, cpu.pos, cpu_data, cpu_digest, cpu_chal, ctx)
+        plain_ms = (time.perf_counter() - t0) * 1e3 / 20
+        perms, _ = sponge_permutations(0, [(k, True)] * (K7_TIMED + 1))  # the warm-up launch and the timed ones
+        least, by = sponge_step_bound_ms(perms / (K7_TIMED + 1), k, dependent_op_s, ctx.L)
+        out[what] = {"ms": ms, "raw_launch_ms": raw_ms, "plain_ms": plain_ms, "bound_ms": least, "bound_by": by,
+                     "permutations_a_step": perms / (K7_TIMED + 1), "launch_ms": launch["launch_ms"],
+                     "bound_with_launch_ms": least + launch["launch_ms"]}
+        log(f"K7 {what} step ({k} bytes, squeeze, challenge): {ms:.5f} ms a launch through the wrapper, {raw_ms:.5f} ms "
+            f"a launch with its arguments made once (plain on the CPU {plain_ms:.3f} ms); "
+            f"bound {least:.5f} ms ({by}: {perms / (K7_TIMED + 1):.3f} permutations of {PERMUTATION_DEPTH} dependent "
+            f"instructions at {launch['dependent_op_ns']:.3f} ns), with the launch {least + launch['launch_ms']:.5f} ms")
+    return out
+
+
+def checkpoint_paths(device, rng) -> dict:
+    """Phase 23: the 2^24 basic sumcheck saved after round CHECKPOINT_ROUND,
+    loaded and finished, equal to the uninterrupted (fused) proof; the
+    depth-20 sparse GKR prove saved after layer CHECKPOINT_LAYER, loaded and
+    finished, its JSON equal to sparse.prove's."""
+    from tpu_zk_torch.circuit.layered import tree_sum_circuit
+    from tpu_zk_torch.fields import arith
+    from tpu_zk_torch.fields.arith import field_ctx
+    from tpu_zk_torch.gkr import sparse
+    from tpu_zk_torch.poly.multilinear import MultilinearPolynomial
+    from tpu_zk_torch.sumcheck.basic import Prover, Verifier
+    from tpu_zk_torch.utils.checkpoint import CheckpointableSparseGkrProver, CheckpointableSumcheckProver
+    from tpu_zk_torch.utils.serialize import gkr_proof_to_json
+
+    ctx = field_ctx("bn254_fr")
+    plain, _ = random_table(ctx, rng, MAIN_LOG_N, device)
+    poly = MultilinearPolynomial(ctx, arith.to_mont(ctx, plain))
+    del plain
+    want = Prover(poly).prove()
+    prover = CheckpointableSumcheckProver(poly)
+    _, t_run = sync_time(lambda: prover.run(max_rounds=CHECKPOINT_ROUND))
+    blob, t_save = sync_time(prover.save)
+    del prover
+    resumed, t_load = sync_time(lambda: CheckpointableSumcheckProver.load(blob, device))
+    proof, t_finish = sync_time(resumed.run)
+    if not same_sumcheck_proofs(want, proof) or not Verifier.init().verify(proof):
+        raise AssertionError(f"2^{MAIN_LOG_N} sumcheck resumed after round {CHECKPOINT_ROUND}: the proof differs")
+    out = {"sumcheck": {"log_n": MAIN_LOG_N, "round": CHECKPOINT_ROUND, "blob_bytes": len(blob), "run_s": t_run,
+                        "save_s": t_save, "load_s": t_load, "finish_s": t_finish}}
+    del blob, resumed, proof, want, poly
+
+    plain, _ = random_table(ctx, rng, CHECKPOINT_DEPTH, device)
+    table = arith.to_mont(ctx, plain)
+    del plain
+    circuit = tree_sum_circuit(ctx, CHECKPOINT_DEPTH)
+    want = gkr_proof_to_json(sparse.prove(circuit, table), ctx.name)
+    prover = CheckpointableSparseGkrProver(circuit, table)
+    _, t_run = sync_time(lambda: prover.run(max_layers=CHECKPOINT_LAYER))
+    blob, t_save = sync_time(prover.save)
+    del prover
+    resumed, t_load = sync_time(lambda: CheckpointableSparseGkrProver.load(circuit, blob, device))
+    proof, t_finish = sync_time(resumed.run)
+    if gkr_proof_to_json(proof, ctx.name) != want:
+        raise AssertionError(f"GKR depth {CHECKPOINT_DEPTH} resumed after layer {CHECKPOINT_LAYER}: the proof differs")
+    out["sparse_gkr"] = {"depth": CHECKPOINT_DEPTH, "layer": CHECKPOINT_LAYER, "blob_bytes": len(blob), "run_s": t_run,
+                         "save_s": t_save, "load_s": t_load, "finish_s": t_finish}
+    log("checkpoints: " + json.dumps(out))
+    return out
+
+
+def counters_path(device, rng) -> dict:
+    """Phase 23: the field-operation counters over one fused 2^20 basic-sumcheck prove."""
+    from tpu_zk_torch.fields import arith
+    from tpu_zk_torch.fields.arith import field_ctx
+    from tpu_zk_torch.poly.multilinear import MultilinearPolynomial
+    from tpu_zk_torch.sumcheck.basic import Prover
+    from tpu_zk_torch.utils import counters
+
+    ctx = field_ctx("bn254_fr")
+    plain, _ = random_table(ctx, rng, COUNTERS_LOG_N, device)
+    poly = MultilinearPolynomial(ctx, arith.to_mont(ctx, plain))
+    counters.enable(True)
+    counters.reset()
+    try:
+        Prover(poly).prove()
+        summary = counters.summary()
+    finally:
+        counters.enable(False)
+    log(f"counters over one fused 2^{COUNTERS_LOG_N} basic-sumcheck prove:")
+    counters.print_summary()
+    return summary
+
+
+def roofline_table(times: dict, k56: dict, rates: tuple, lrate: float, card: str) -> str:
+    """Phase 23, last: roofline.render_markdown over phase 10's and 21's
+    measured kernels, at the probed rates."""
+    from tpu_zk_torch.utils import roofline
+
+    N, elem, mul = 1 << MAIN_LOG_N, 64, mont_mul_wide_mads(16)
+    models = {
+        "K1 sumcheck 2^24 x broadcast": roofline.KernelModel("K1 2^24 x broadcast", 2 * N * elem, N * mul),
+        "K2 sumcheck B=1 2^24 -> 2^23": roofline.sumcheck_round_model(MAIN_LOG_N),
+        "K3 GKR sub hi - lo 2^25": roofline.KernelModel("K3 sub 2^25", 3 * 2 * N * elem, 0),
+        "K3 GKR add 2^25": roofline.KernelModel("K3 add 2^25", 3 * 2 * N * elem, 0),
+        "K3 GKR add 2^24 + broadcast": roofline.KernelModel("K3 add 2^24 + broadcast", 2 * N * elem, 0),
+        "K1 GKR collapse 2^24 pairs": roofline.KernelModel("K1 2^24 pairs", 3 * N * elem, N * mul),
+        "K2 GKR B=4 2^24 -> 2^23": roofline.KernelModel("K2 B=4 2^24 -> 2^23", 4 * (N + N // 2) * elem, 4 * N // 2 * mul),
+    }
+    rows = [models[what].row(m["ms"] / 1e3, rates, lrate) for what, m in times.items()]
+    rows.append(roofline.ntt_model(MAIN_LOG_N).row(sum(k56["K6"]["passes_ms"]) / 1e3, rates, lrate))
+    hashes = 2 * N - 1
+    k5 = roofline.KernelModel(f"K5 2^{MAIN_LOG_N}-leaf tree", N * 32 + (N - 1) * 64 + hashes * 32, 0,
+                              N * keccak_ops(32) + (N - 1) * keccak_ops(64))
+    rows.append(k5.row(k56["K5"]["tree_ms"] / 1e3, rates, lrate))
+    table = roofline.render_markdown(rows, card)
+    log(table)
+    return table
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1818,6 +2238,7 @@ def main() -> None:
     _build.pairing_library()
     log(f"build: kernels {t1 - t0:.2f} s, keccak {t2 - t1:.2f} s, pairing {time.perf_counter() - t2:.2f} s")
     log("ptxas: " + json.dumps(_build.resource_usage()))
+    launch = launch_latency(device)
     rates = mad_rates(device)
     lrate = logic_rate(device)
     product_probe(device)
@@ -1862,12 +2283,19 @@ def main() -> None:
     interactive_run = interactive_path(device, rng)
     log(f"phase 22 (dense GKR, interactive sumcheck): {time.perf_counter() - t_new:.1f} s; "
         f"whole script so far {time.perf_counter() - t_script:.1f} s")
+    t_new = time.perf_counter()
+    k7 = check_k7(device, args.seed, launch)  # 23
+    checkpoint_paths(device, rng)
+    counters_path(device, rng)
+    roofline_table(times, k56, rates, lrate, smi.stdout.strip())
+    log(f"phase 23 (K7, checkpoints, counters, roofline): {time.perf_counter() - t_new:.1f} s; "
+        f"whole script so far {time.perf_counter() - t_script:.1f} s")
     launches = {"sumcheck": sumcheck_runs[0]["launches"], "gkr": gkr_runs[0]["launches"],
                 "succinct": succinct_run["launches"], "ntt": ntt_run["launches"], "fri": fri_runs[0]["launches"],
                 "dense": dense_run["launches"], "dense_succinct": dense_run["succinct"]["launches"],
                 "interactive": interactive_run["launches"]}
 
-    log(json.dumps({"kernels": kernels_line(times, launches, k4_small, k4_main["kernels"], k56, rates)}))
+    log(json.dumps({"kernels": kernels_line(times, launches, k4_small, k4_main["kernels"], k56, k7, rates)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -355,11 +355,12 @@ def test_composed_matches_tpu_zk(ref):
 
 
 def test_breakdown_times_every_stage():
-    """The stage timers reach every stage of a prove (2 rounds per variable
-    pair, 3 segment sums per layer) and put the prover back as it was."""
+    """The stage timers reach every stage of a host-synced prove (2 rounds
+    per variable pair, 3 segment sums per layer) and put the prover back as
+    it was."""
     before = [vars(owner)[name] for owner, name, _ in breakdown.STAGES]
     depth = 3
-    out = breakdown.run(depth, device="cpu")
+    out = breakdown.run(depth, device="cpu", fused=False)
     assert [vars(owner)[name] for owner, name, _ in breakdown.STAGES] == before
     assert set(out["stage_calls"]) == {stage for _, _, stage in breakdown.STAGES}
     rounds = 2 * sum(range(1, depth + 1))
@@ -369,3 +370,19 @@ def test_breakdown_times_every_stage():
     assert [size for size, _ in out["layer_s_by_table_size"]] == [2, 4, 8]
     assert sum(out["stages_s"].values()) <= out["prove_with_timers_s"]
     assert out["device_idle_share"] is None
+
+
+def test_fused_breakdown_times_every_stage():
+    """The same for the fused prover (the default): a K7 sponge step and a
+    device interpolation a round, one fused phase a variable set."""
+    before = [vars(owner)[name] for owner, name, _ in breakdown.FUSED_STAGES]
+    depth = 2
+    out = breakdown.run(depth, device="cpu")
+    assert [vars(owner)[name] for owner, name, _ in breakdown.FUSED_STAGES] == before
+    assert set(out["stage_calls"]) == {stage for _, _, stage in breakdown.FUSED_STAGES}
+    rounds = 2 * sum(range(1, depth + 1))
+    for stage in ("round evaluations (K3, K1, int64 sums)", "device interpolation (K1, K3)", "device sponge (K7)",
+                  "folds (K2)"):
+        assert out["stage_calls"][stage] == rounds
+    assert out["stage_calls"][breakdown.FUSED_STAGES[-1][2]] == 2 * depth
+    assert sum(out["stages_s"].values()) <= out["prove_with_timers_s"]

@@ -146,6 +146,15 @@ def test_succinct_proof_json_equals_tpu_zk_fused(name, port_cases, ref):
     assert port_cases[name][3] == ref[name]["fused_json"]
 
 
+@pytest.mark.parametrize("name", FUSED_CASES)
+def test_succinct_host_synced_proof_json_equals_tpu_zk(name, port_cases, ref):
+    """The port's fused=False prover: the same bytes as its default (fused)
+    one, which the tests above hold to tpu_zk's."""
+    circuit, inputs, setup, _ = port_cases[name]
+    proof = sparse.prove_succinct(circuit, inputs, setup, fused=False)
+    assert serialize.succinct_proof_to_json(proof, circuit.ctx.name) == ref[name]["json"]
+
+
 @pytest.mark.parametrize("name", CASES)
 def test_port_succinct_proof_verifies_in_tpu_zk(name, ref):
     """tpu_zk accepts the port's proof and rejects it with a tampered

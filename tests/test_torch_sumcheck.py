@@ -203,6 +203,8 @@ def test_import_without_jax():
         "import tpu_zk_torch.merkle.merkle, tpu_zk_torch.merkle.device_merkle, tpu_zk_torch.merkle.kernels\n"
         "import tpu_zk_torch.gkr.protocol, tpu_zk_torch.gkr.wiring, tpu_zk_torch.gkr.fused_sparse\n"
         "import tpu_zk_torch.sumcheck.interactive, tpu_zk_torch.shamir.shamir, tpu_zk_torch.apps.fib\n"
+        "import tpu_zk_torch.transcript.device_fs, tpu_zk_torch.transcript.kernels, tpu_zk_torch.sumcheck.fused\n"
+        "import tpu_zk_torch.utils.counters, tpu_zk_torch.utils.roofline, tpu_zk_torch.utils.checkpoint\n"
         "import chip_smoke\n"
         "assert not [m for m in sys.modules if m == 'tpu_zk' or m.startswith('tpu_zk.')], 'imported tpu_zk'\n"
     )

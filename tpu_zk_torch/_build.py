@@ -88,12 +88,18 @@ KERNEL_ARGTYPES = {
     "tzk_ntt_pass": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _I64, _I32, _I64, _I32, _PTR, _U32, _PTR, _PTR],
     # data, out, n rows, w bytes a row, stream (csrc/keccak.cu)
     "tzk_keccak_rows": [_PTR, _PTR, _I64, _I32, _PTR],
+    # state, buf, pos, data, k, digest, challenge (both may be null), L, p32, n0inv, r2_32, stream (csrc/sponge.cu)
+    "tzk_sponge_step": [_PTR, _PTR, _PTR, _PTR, _I64, _PTR, _PTR, _I32, _PTR, _U32, _PTR, _PTR],
+    # stream: one launch of an empty kernel (csrc/probe.cu)
+    "tzk_empty_probe": [_PTR],
     # out, blocks (of 256 threads), iters, a, b, stream: blocks * 256 * 8 * iters multiply-adds (csrc/probe.cu)
     "tzk_imad_probe": [_PTR, _I32, _I32, _U32, _U32, _PTR],
     # out, blocks, iters, a, stream: as many wide (32 x 32 + 64 -> 64 bit) multiply-adds, the CIOS instruction
     "tzk_wide_mad_probe": [_PTR, _I32, _I32, _U32, _PTR],
     # out, blocks, iters, s, k, stream: blocks * 256 * 16 * iters 32-bit funnel shifts and logic ops
     "tzk_logic_probe": [_PTR, _I32, _I32, _U32, _U32, _PTR],
+    # out, iters, s, k, stream: one thread's chain of 2 * iters dependent funnel shifts and logic ops
+    "tzk_latency_probe": [_PTR, _I32, _U32, _U32, _PTR],
     # a, b, out, n, iters, even_odd, L, p32, n0inv, stream: n chains of iters Montgomery products
     "tzk_mont_probe": [_PTR, _PTR, _PTR, _I64, _I32, _I32, _I32, _PTR, _U32, _PTR],
 }

@@ -11,8 +11,8 @@
 //
 // Design.  One thread per row.  The 25 64-bit lanes live in registers (each
 // a pair of 32-bit registers), the 24 rounds are unrolled with the rho
-// rotations as constants, so every rotation is two funnel shifts and chi's
-// b ^ (~c & d) one three-input logic op per half.  A row whose width is a
+// rotations as constants (csrc/keccak.cuh), so every rotation is two funnel
+// shifts and chi's b ^ (~c & d) one three-input logic op per half.  A row whose width is a
 // multiple of 8 is read as 8-byte words, any other width byte by byte.  The
 // TPU kernel kept the batch on the vector lanes and the state in VMEM; here
 // nothing but the row and its digest touches device memory.
@@ -36,67 +36,11 @@
 
 #include <cstdint>
 
+#include "keccak.cuh"
+
 namespace tzk {
 
 constexpr int kKeccakThreads = 128;
-constexpr int kRate = 136;
-
-__constant__ uint64_t kKeccakRC[24] = {
-    0x0000000000000001ull, 0x0000000000008082ull, 0x800000000000808Aull, 0x8000000080008000ull,
-    0x000000000000808Bull, 0x0000000080000001ull, 0x8000000080008081ull, 0x8000000000008009ull,
-    0x000000000000008Aull, 0x0000000000000088ull, 0x0000000080008009ull, 0x000000008000000Aull,
-    0x000000008000808Bull, 0x800000000000008Bull, 0x8000000000008089ull, 0x8000000000008003ull,
-    0x8000000000008002ull, 0x8000000000000080ull, 0x000000000000800Aull, 0x800000008000000Aull,
-    0x8000000080008081ull, 0x8000000000008080ull, 0x0000000080000001ull, 0x8000000080008008ull,
-};
-
-__device__ __forceinline__ uint64_t rotl64(uint64_t x, int s) { return (x << s) | (x >> (64 - s)); }
-
-// Keccak-f[1600] on 25 lanes, lane (x, y) at A[x + 5 y].
-__device__ __forceinline__ void keccak_f1600(uint64_t (&A)[25]) {
-#pragma unroll
-  for (int r = 0; r < 24; ++r) {
-    uint64_t C[5], D[5], B[25];
-#pragma unroll
-    for (int x = 0; x < 5; ++x) C[x] = A[x] ^ A[x + 5] ^ A[x + 10] ^ A[x + 15] ^ A[x + 20];
-#pragma unroll
-    for (int x = 0; x < 5; ++x) D[x] = C[(x + 4) % 5] ^ rotl64(C[(x + 1) % 5], 1);
-    // theta's D, rho and pi: B[y + 5 ((2x + 3y) % 5)] = rotl(A[x + 5y] ^ D[x], r[x][y])
-    B[0] = A[0] ^ D[0];
-    B[1] = rotl64(A[6] ^ D[1], 44);
-    B[2] = rotl64(A[12] ^ D[2], 43);
-    B[3] = rotl64(A[18] ^ D[3], 21);
-    B[4] = rotl64(A[24] ^ D[4], 14);
-    B[5] = rotl64(A[3] ^ D[3], 28);
-    B[6] = rotl64(A[9] ^ D[4], 20);
-    B[7] = rotl64(A[10] ^ D[0], 3);
-    B[8] = rotl64(A[16] ^ D[1], 45);
-    B[9] = rotl64(A[22] ^ D[2], 61);
-    B[10] = rotl64(A[1] ^ D[1], 1);
-    B[11] = rotl64(A[7] ^ D[2], 6);
-    B[12] = rotl64(A[13] ^ D[3], 25);
-    B[13] = rotl64(A[19] ^ D[4], 8);
-    B[14] = rotl64(A[20] ^ D[0], 18);
-    B[15] = rotl64(A[4] ^ D[4], 27);
-    B[16] = rotl64(A[5] ^ D[0], 36);
-    B[17] = rotl64(A[11] ^ D[1], 10);
-    B[18] = rotl64(A[17] ^ D[2], 15);
-    B[19] = rotl64(A[23] ^ D[3], 56);
-    B[20] = rotl64(A[2] ^ D[2], 62);
-    B[21] = rotl64(A[8] ^ D[3], 55);
-    B[22] = rotl64(A[14] ^ D[4], 39);
-    B[23] = rotl64(A[15] ^ D[0], 41);
-    B[24] = rotl64(A[21] ^ D[1], 2);
-    // chi
-#pragma unroll
-    for (int y = 0; y < 25; y += 5) {
-#pragma unroll
-      for (int x = 0; x < 5; ++x) A[y + x] = B[y + x] ^ (~B[y + (x + 1) % 5] & B[y + (x + 2) % 5]);
-    }
-    // iota
-    A[0] ^= kKeccakRC[r];
-  }
-}
 
 __global__ void __launch_bounds__(kKeccakThreads)
     keccak_rows_kernel(const uint8_t* __restrict__ data, uint8_t* __restrict__ out, int64_t n, int w, int words) {

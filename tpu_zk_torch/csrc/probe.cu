@@ -18,6 +18,16 @@
 // (x <- rotl32(x, s) ^ k, with s and k run-time values so that no two steps
 // fold into one): the instructions of csrc/keccak.cu's permutation, whose
 // operation bound is counted in them.
+//
+// tzk_latency_probe runs one thread's single chain of the same step,
+// x <- rotl32(x, s) ^ k: each instruction waits for the one before it, so
+// its time over 2 * iters instructions is the latency of one dependent
+// funnel shift or logic op, in which K7's bound is counted (a sponge is one
+// serial chain of permutations, csrc/sponge.cu).
+//
+// tzk_empty_probe launches a kernel that does nothing, one thread: timed
+// over a run of launches from Python, it gives what a launch costs by
+// itself, the floor under a kernel as short as K7 (csrc/sponge.cu).
 
 #include <cuda_runtime.h>
 
@@ -79,6 +89,17 @@ __global__ void __launch_bounds__(kProbeThreads) logic_probe_kernel(uint32_t* __
   for (int c = 0; c < kProbeChains; ++c) acc ^= x[c];
   out[(int64_t)blockIdx.x * blockDim.x + threadIdx.x] = acc;
 }
+
+// One thread, one chain x <- rotl32(x, s) ^ k: every instruction depends on
+// the one before it.
+__global__ void latency_probe_kernel(uint32_t* __restrict__ out, int iters, uint32_t s, uint32_t k) {
+  uint32_t x = 0x9E3779B9u;
+#pragma unroll 16
+  for (int i = 0; i < iters; ++i) x = __funnelshift_l(x, x, s) ^ k;
+  out[0] = x;
+}
+
+__global__ void empty_kernel() {}
 
 // Thread i: x = a[i], then x <- x * b[i] ``iters`` times; out[i] = x.
 template <int N, bool EVEN_ODD>
@@ -161,6 +182,21 @@ int tzk_logic_probe(void* out, int blocks, int iters, uint32_t s, uint32_t k, vo
   if (blocks <= 0 || iters <= 0) return (int)cudaErrorInvalidValue;
   logic_probe_kernel<<<blocks, kProbeThreads, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<uint32_t*>(out),
                                                                                       iters, s, k);
+  return (int)cudaGetLastError();
+}
+
+// One block of one thread running iters dependent steps of one funnel
+// shift and one logic op: 2 * iters instructions in one chain.
+int tzk_latency_probe(void* out, int iters, uint32_t s, uint32_t k, void* stream) {
+  using namespace tzk;
+  if (iters <= 0) return (int)cudaErrorInvalidValue;
+  latency_probe_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<uint32_t*>(out), iters, s, k);
+  return (int)cudaGetLastError();
+}
+
+// One launch of the empty kernel, one block of one thread.
+int tzk_empty_probe(void* stream) {
+  tzk::empty_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..device import resolve
+from ..utils import counters
 from . import kernels
 from .primes import PRIMES, SERIALIZED_BYTES
 
@@ -210,11 +211,13 @@ def _elementwise(kernel, ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor, *args)
 
 def add(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Modular add of canonical elements [..., L] (broadcasting), through K3."""
+    counters.bump(ctx.name, "add", a, b)
     return _elementwise(kernels.addsub, ctx, a, b, "add")
 
 
 def sub(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Modular sub of canonical elements [..., L] (broadcasting), through K3."""
+    counters.bump(ctx.name, "sub", a, b)
     return _elementwise(kernels.addsub, ctx, a, b, "sub")
 
 
@@ -239,6 +242,7 @@ def mont_mul(ctx: FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     Goes through the K1 wrapper: the CUDA kernel for CUDA tensors, the plain
     CIOS for CPU tensors.
     """
+    counters.bump(ctx.name, "mul", a, b)
     return _elementwise(kernels.mont_mul, ctx, a, b)
 
 
@@ -309,6 +313,7 @@ def sum_mod(ctx: FieldCtx, a: torch.Tensor, axis: int = 0) -> torch.Tensor:
     one wide Montgomery reduction and a scale back by R^2.  Modular addition
     is associative, so the result equals any other summation order's.
     """
+    counters.bump(ctx.name, "add", a)
     if axis < 0:
         axis += a.dim()
     lazy = a.sum(dim=axis, dtype=torch.int64)
@@ -344,3 +349,28 @@ def lazy_to_ints(ctx: FieldCtx, lazy: torch.Tensor) -> list[int]:
     """
     rows = lazy.reshape(-1, lazy.shape[-1]).cpu().tolist()
     return [sum(v << (LIMB_BITS * k) for k, v in enumerate(row)) * ctx.Rinv % ctx.p for row in rows]
+
+
+@functools.lru_cache(maxsize=None)
+def _chunk_weights(ctx: FieldCtx, device: torch.device) -> torch.Tensor:
+    """[3, 1, L] Montgomery constants 2^(16 j) R mod p, j = 0, 1, 2 (cached)."""
+    vals = [(1 << (LIMB_BITS * j)) * ctx.R % ctx.p for j in range(3)]
+    return torch.tensor([_limbs_of_int(v, ctx.L) for v in vals], dtype=torch.int32, device=device)[:, None]
+
+
+def lazy_to_mont(ctx: FieldCtx, lazy: torch.Tensor) -> torch.Tensor:
+    """int64 lazy limb sums [..., L] of Montgomery elements (each limb below
+    2^48) -> their canonical Montgomery sums [..., L], on the device, with no
+    carry pass.
+
+    Each lazy limb splits into three 16-bit chunks, so the sum is
+    A + 2^16 B + 2^32 C with A, B and C vectors of 16-bit limbs, each below
+    R.  One Montgomery product by 2^(16 j) R mod p reduces each of them
+    (valid for any first operand below R: one K1 launch over the three),
+    and two K3 additions sum them: about ten launches, where
+    :func:`reduce_wide_to_mont` after :func:`carry_propagate` takes a few
+    hundred small ones.
+    """
+    chunks = torch.stack([(lazy >> (LIMB_BITS * j)) & MASK for j in range(3)]).to(torch.int32)
+    parts = mont_mul(ctx, chunks, _chunk_weights(ctx, lazy.device).expand(chunks.shape))
+    return add(ctx, add(ctx, parts[0], parts[1]), parts[2])

@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from .. import _build
+from ..utils import counters
 from . import arith
 
 # K2's per-block limb sums stay below 2^32 only while a block sums at most
@@ -203,6 +204,10 @@ def fold(ctx: arith.FieldCtx, flat: torch.Tensor, r: torch.Tensor, block: int):
         raise ValueError(f"fold: shapes {tuple(flat.shape)}, r {tuple(r.shape)}")
     if not 1 <= block <= MAX_FOLD_BLOCK:
         raise ValueError(f"fold: block {block} outside [1, {MAX_FOLD_BLOCK}]")
+    if counters._enabled:  # lo + r * (hi - lo): a sub, a product and an add an output element
+        lo = flat[:, : flat.shape[1] // 2]
+        for op in ("sub", "mul", "add"):
+            counters.bump(ctx.name, op, lo)
     if _on_cpu(flat, r):
         return fold_plain(ctx, flat, r, block)
     B, N2, L = flat.shape

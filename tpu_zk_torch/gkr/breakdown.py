@@ -2,11 +2,12 @@
 ``--succinct``, where the time of a succinct GKR setup, prove and verify goes;
 with ``--dense``, where the time of a dense GKR prove and verify goes.
 
-    python3 -m tpu_zk_torch.gkr.breakdown [--succinct | --dense] [--out FILE] [depth ...]
+    python3 -m tpu_zk_torch.gkr.breakdown [--succinct | --dense] [--host-synced] [--out FILE] [depth ...]
 
 For each depth (default 24) of ``tree_sum_circuit`` over BN254 Fr, on random
-canonical inputs made from the depth as seed, on the CUDA card: a warm-up
-prove that must verify, three timed warm proves and two timed verifies; one
+canonical inputs made from the depth as seed, on the CUDA card, with the
+fused prover (``FUSED_STAGES``) or, with ``--host-synced``, ``fused=False``
+(``STAGES``): a warm-up prove that must verify, three timed warm proves and two timed verifies; one
 prove with a synchronizing timer at every stage boundary (exclusive times,
 calls per stage, time per layer); one prove under ``torch.profiler`` for the
 device's busy time, idle share and time by kernel name.  Prints one JSON
@@ -54,29 +55,39 @@ from ..fields import arith
 from ..fields.arith import field_ctx
 from ..kzg import multilinear_kzg, trusted_setup
 from ..poly import univariate
-from ..sumcheck import gkr_sumcheck
+from ..sumcheck import fused, gkr_sumcheck
 from ..transcript import fiat_shamir
 from ..utils.convert import limbs_from_numpy
 from . import protocol, sparse, wiring
 
-# (owner, attribute, stage): the functions whose exclusive time is a stage
-STAGES = [
+# (owner, attribute, stage): the functions whose exclusive time is a stage, in either prover
+_COMMON_STAGES = [
     (layered.Circuit, "evaluate", "circuit evaluation"),
     (sparse, "_out_weights", "phase tables: out weights (eq tables)"),
     (sparse, "_phase1_tables", "phase tables: phase 1 gathers, products"),
     (sparse, "_phase2_tables", "phase tables: phase 2 eq table, gathers, products"),
     (arith, "mont_segment_sum", "segment sums (int64 index_add_, carry, redc_wide, K1 R^2)"),
-    (gkr_sumcheck, "generate_round_univariate", "round evaluations (K3, K1, int64 sums)"),
-    (arith, "lazy_to_ints", "host copy of round sums + int reduction"),
-    (univariate.DenseUnivariatePolynomial, "lagrange_interpolate", "host interpolation"),
+    (fused, "_round_lazy_sums", "round evaluations (K3, K1, int64 sums)"),
     (fiat_shamir.Transcript, "append", "host transcript (Keccak absorb)"),
     (fiat_shamir.Transcript, "random_challenge_as_field_element", "host transcript (squeeze)"),
     (gkr_sumcheck, "fold", "folds (K2)"),
+    (fused, "fold", "folds (K2)"),
     (sparse, "_layer_sumcheck", "layer sumcheck, rest (stacks, w(b*) + w, M' w(b*))"),
+]
+# the host-synced prover's (fused=False) stages
+STAGES = _COMMON_STAGES + [
+    (arith, "lazy_to_ints", "host copy of round sums + int reduction"),
+    (univariate.DenseUnivariatePolynomial, "lagrange_interpolate", "host interpolation"),
+]
+# the fused prover's (the default) stages
+FUSED_STAGES = _COMMON_STAGES + [
+    (fused, "_interpolate_mont", "device interpolation (K1, K3)"),
+    (fused, "sponge_step", "device sponge (K7)"),
+    (gkr_sumcheck, "_prove_fused", "fused phase, rest (sponge seed, reduction, one copy of coefficients and digests)"),
 ]
 
 # the stages of the succinct path on top of the GKR ones
-SUCCINCT_STAGES = STAGES + [
+SUCCINCT_STAGES = FUSED_STAGES + [
     (trusted_setup, "compute_lagrange_basis_device", "setup: Lagrange basis (K1)"),
     (trusted_setup, "host_window_table", "setup: host window table"),
     (trusted_setup, "fixed_base_msm", "setup: fixed-base G1 powers (K1, K3)"),
@@ -99,7 +110,7 @@ SUCCINCT_STAGES = STAGES + [
 
 
 # the stages of the dense pipeline (gkr/protocol.py), prover and verifier, on top of the GKR ones
-DENSE_STAGES = STAGES + [
+DENSE_STAGES = FUSED_STAGES + [
     (layered.Circuit, "wiring_table", "wiring build (zeroed pair, scatter of ones)"),
     (wiring.WiringPair, "alpha_beta_fold", "alpha/beta folds (K2 a point, K1, K3)"),
     (protocol, "_layer_wiring", "layer wiring, rest (layer 0: partial evaluation at ra, K2)"),
@@ -117,7 +128,7 @@ class Timers:
     call by its input table's size."""
 
     def __init__(self, device: torch.device, stages=None):
-        self.stages = STAGES if stages is None else stages
+        self.stages = FUSED_STAGES if stages is None else stages
         self.sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
         self.total: dict[str, float] = collections.defaultdict(float)  # exclusive of the stages called inside
         self.each: dict[str, list[float]] = collections.defaultdict(list)  # inclusive, call by call
@@ -179,7 +190,7 @@ def random_inputs(ctx, depth: int, device) -> torch.Tensor:
     return arith.to_mont(ctx, limbs_from_numpy(limbs, device))
 
 
-def run(depth: int, device="cuda") -> dict:
+def run(depth: int, device="cuda", fused: bool = True) -> dict:
     device = torch.device(device)
     on_card = device.type == "cuda"
     if on_card:
@@ -187,24 +198,27 @@ def run(depth: int, device="cuda") -> dict:
     ctx = field_ctx("bn254_fr")
     table = random_inputs(ctx, depth, device)
     circuit = tree_sum_circuit(ctx, depth)
-    timers = Timers(device)
-    out: dict = {"depth": depth}
+    timers = Timers(device, FUSED_STAGES if fused else STAGES)
+    out: dict = {"depth": depth, "fused": fused}
 
-    proof = sparse.prove(circuit, table)  # warm-up
+    def prove():
+        return sparse.prove(circuit, table, fused=fused)
+
+    proof = prove()  # warm-up
     if not sparse.verify(circuit, proof, table):
         raise AssertionError(f"depth {depth}: the warm-up proof does not verify")
-    out["prove_warm_s"] = _timed_runs(lambda: sparse.prove(circuit, table), 3, timers.sync)
+    out["prove_warm_s"] = _timed_runs(prove, 3, timers.sync)
     out["verify_warm_s"] = _timed_runs(lambda: sparse.verify(circuit, proof, table), 2, timers.sync)
 
     with timers.installed():
-        out["prove_with_timers_s"] = _timed_runs(lambda: sparse.prove(circuit, table), 1, timers.sync)[0]
+        out["prove_with_timers_s"] = _timed_runs(prove, 1, timers.sync)[0]
     out["stages_s"] = dict(sorted(timers.total.items(), key=lambda kv: -kv[1]))
     out["stage_calls"] = dict(timers.calls)
     out["layer_s_by_table_size"] = timers.layers
 
     activities = [torch.profiler.ProfilerActivity.CPU] + ([torch.profiler.ProfilerActivity.CUDA] if on_card else [])
     with torch.profiler.profile(activities=activities) as prof:
-        out["profiled_prove_s"] = _timed_runs(lambda: sparse.prove(circuit, table), 1, timers.sync)[0]
+        out["profiled_prove_s"] = _timed_runs(prove, 1, timers.sync)[0]
     by_kernel: dict[str, float] = collections.defaultdict(float)
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
@@ -325,6 +339,7 @@ def main() -> None:
     path = ap.add_mutually_exclusive_group()
     path.add_argument("--succinct", action="store_true", help="break down the succinct path instead of plain GKR")
     path.add_argument("--dense", action="store_true", help="break down the dense GKR pipeline (depth 9 at most)")
+    ap.add_argument("--host-synced", action="store_true", help="plain GKR with fused=False (a host sync a round)")
     ap.add_argument("--out", default=os.path.join("build", "gkr_breakdown.json"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -335,7 +350,8 @@ def main() -> None:
     print(card, flush=True)
     results = {"card": card, "runs": []}
     for depth in args.depths:
-        r = run_succinct(depth) if args.succinct else run_dense(depth) if args.dense else run(depth)
+        r = (run_succinct(depth) if args.succinct else run_dense(depth) if args.dense
+             else run(depth, fused=not args.host_synced))
         results["runs"].append(r)
         print(json.dumps({k: v for k, v in r.items() if k not in ("layer_s_by_table_size", "top_device_ops_s")}),
               flush=True)

@@ -20,12 +20,15 @@ Phase 2 (variables c, b* fixed):
 with ``W_out[g] = eq(ra, out_g)`` for layer 0 and
 ``alpha*eq(rb, out_g) + beta*eq(rc, out_g)`` below it.
 
-Unlike ``tpu_zk``'s TPU prover (``fused_sparse._drive_layers``), this one has no pool of fused device
-programs and no device sponge: on a local card a host sync costs
-microseconds, so each round copies its degree+1 sums to the host and the
-host transcript squeezes the challenge.  w(b*) and w(rc) are read from the
-fully folded working sets (as ``fused_sparse._layer_small`` does) instead of
-evaluating the layer's MLE again.
+Unlike ``tpu_zk``'s TPU prover (``fused_sparse._drive_layers``), this one
+has no pool of compiled device programs.  With ``fused=True`` (the default)
+each phase's rounds run on the device sponge (:mod:`tpu_zk_torch.sumcheck.fused`,
+one K7 launch a round) and the host reads the phase's coefficients and
+challenges once at its end; with ``fused=False`` each round copies its
+degree+1 sums to the host and the host transcript squeezes the challenge.
+w(b*) and w(rc) are read from the fully folded working sets (as
+``fused_sparse._layer_small`` does) instead of evaluating the layer's MLE
+again.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from ..kzg import multilinear_kzg
 from ..kzg.trusted_setup import TrustedSetup
 from ..poly.composed import SumPolynomial
 from ..poly.multilinear import MultilinearPolynomial
+from ..poly.univariate import DenseUnivariatePolynomial
 from ..sumcheck import gkr_sumcheck
 from ..transcript.fiat_shamir import Transcript
 from .protocol import Proof, _w0_padded
@@ -100,7 +104,7 @@ def _phase2_tables(ctx: FieldCtx, layer: Layer, w_out: torch.Tensor, b_star: lis
 
 
 def _layer_sumcheck(ctx: FieldCtx, layer: Layer, w_table: torch.Tensor, w_out: torch.Tensor,
-                    claimed_sum: int, transcript: Transcript):
+                    claimed_sum: int, transcript: Transcript, fused: bool = True):
     """One layer's (b, c) sumcheck in two phases.  Returns the merged proof
     (the dense pipeline's single 2s-variable sumcheck, byte for byte) and
     the Montgomery [L] values w(b*) and w(rc)."""
@@ -110,14 +114,14 @@ def _layer_sumcheck(ctx: FieldCtx, layer: Layer, w_table: torch.Tensor, w_out: t
     a1m1, a2 = _phase1_tables(ctx, layer, w_table, w_out)
     ones = ctx.one_mont(w_table.device).expand(S, ctx.L)
     h1 = SumPolynomial(ctx, torch.stack([torch.stack([w_table, a1m1]), torch.stack([a2, ones])]))
-    ph1, done1 = gkr_sumcheck.prove_and_fold(h1, claimed_sum, transcript)
+    ph1, done1 = gkr_sumcheck.prove_and_fold(h1, claimed_sum, transcript, fused)
     wb_m = done1.stacked[0, 0, 0]  # w folded at every phase-1 challenge: w(b*)
 
     a_p, m_p = _phase2_tables(ctx, layer, w_out, ph1.random_challenges, S)
     w_plus = arith.add(ctx, w_table, wb_m)  # w(b*) + w(c) elementwise
     m_scaled = arith.mont_mul(ctx, m_p, wb_m)  # M'(c) * w(b*)
     h2 = SumPolynomial(ctx, torch.stack([torch.stack([a_p, w_plus]), torch.stack([m_scaled, w_table])]))
-    ph2, done2 = gkr_sumcheck.prove_and_fold(h2, claimed_sum, transcript, absorb_claim=False)
+    ph2, done2 = gkr_sumcheck.prove_and_fold(h2, claimed_sum, transcript, fused, absorb_claim=False)
     wc_m = done2.stacked[1, 1, 0]  # w(rc)
 
     proof = gkr_sumcheck.SumcheckProverProof(
@@ -128,80 +132,160 @@ def _layer_sumcheck(ctx: FieldCtx, layer: Layer, w_table: torch.Tensor, w_out: t
     return proof, wb_m, wc_m
 
 
-def _prove_layers(circuit: Circuit, ev, succinct: bool):
-    """Every layer's sumcheck over an evaluated circuit.  Returns
-    (claimed_sum, layer proofs, wb evaluations, wc evaluations, rb, rc).
+class LayerProver:
+    """A GKR prove over an evaluated circuit, one layer a :meth:`step`: the
+    transcript, the layer proofs, the wb/wc evaluations, alpha, beta, the
+    last layer's rb and rc, the running claim and the next layer's index.
 
-    Plain GKR stops recording after the next-to-last layer; the succinct
-    protocol (``succinct_gkr_protocol.rs:119-126``) also keeps rb and rc of
-    the *last* layer, the points at which the input commitment is opened.
-    Both append and absorb wb/wc for every layer but the last.
+    Plain GKR stops recording rb and rc after the next-to-last layer; the
+    succinct protocol (``succinct_gkr_protocol.rs:119-126``) also keeps those
+    of the *last* layer, the points at which the input commitment is opened.
+    Both append and absorb wb/wc for every layer but the last.  The state
+    between two steps (:meth:`state`, :meth:`from_state`) is what
+    :mod:`tpu_zk_torch.utils.checkpoint` saves.
     """
-    ctx = circuit.ctx
-    device = ev.layer_tables[-1].device
-    n_layers = len(circuit.layers)
 
-    transcript = Transcript()
-    layer_proofs = []
-    wb_evaluations: list[int] = []
-    wc_evaluations: list[int] = []
-    alpha = beta = 0
-    rb_values: list[int] = []
-    rc_values: list[int] = []
+    def __init__(self, circuit: Circuit, ev, succinct: bool = False, fused: bool = True):
+        self.circuit = circuit
+        self.ctx = ctx = circuit.ctx
+        self.ev = ev
+        self.succinct = succinct
+        self.fused = fused
+        self.transcript = Transcript()
+        self.layer_proofs = []
+        self.wb_evaluations: list[int] = []
+        self.wc_evaluations: list[int] = []
+        self.alpha = self.beta = 0
+        self.rb_values: list[int] = []
+        self.rc_values: list[int] = []
+        self.layer = 0
+        self.output = ev.output
+        w0_polynomial = _w0_padded(ctx, ev.output, ev.layer_tables[-1].device)
+        self.transcript.append(w0_polynomial.convert_to_bytes())
+        self.random_challenge_a = self.transcript.random_challenge_as_field_element(ctx)
+        self.claimed_sum = w0_polynomial.evaluate([self.random_challenge_a])
 
-    w0_polynomial = _w0_padded(ctx, ev.output, device)
-    transcript.append(w0_polynomial.convert_to_bytes())
-    random_challenge_a = transcript.random_challenge_as_field_element(ctx)
-    claimed_sum = w0_polynomial.evaluate([random_challenge_a])
+    @property
+    def done(self) -> bool:
+        return self.layer == len(self.circuit.layers)
 
-    for layer_index, layer in enumerate(circuit.layers):
-        w_out = _out_weights(ctx, layer_index, layer.on(device)[2], random_challenge_a, alpha, beta,
-                             rb_values, rc_values)
+    def step(self) -> None:
+        """Prove the next layer and fold its claims into the next one's."""
+        ctx, layer_index = self.ctx, self.layer
+        layer = self.circuit.layers[layer_index]
+        device = self.ev.layer_tables[-1].device
+        w_out = _out_weights(ctx, layer_index, layer.on(device)[2], self.random_challenge_a, self.alpha, self.beta,
+                             self.rb_values, self.rc_values)
         sumcheck_proof, wb_m, wc_m = _layer_sumcheck(
-            ctx, layer, ev.layer_tables[layer_index + 1], w_out, claimed_sum, transcript
+            ctx, layer, self.ev.layer_tables[layer_index + 1], w_out, self.claimed_sum, self.transcript, self.fused
         )
-        layer_proofs.append(sumcheck_proof)
-        last = layer_index == n_layers - 1
+        self.layer_proofs.append(sumcheck_proof)
+        last = layer_index == len(self.circuit.layers) - 1
 
-        if succinct or not last:
+        if self.succinct or not last:
             sumcheck_challenges = sumcheck_proof.random_challenges
             middle = len(sumcheck_challenges) // 2
-            rb_values = sumcheck_challenges[:middle]
-            rc_values = sumcheck_challenges[middle:]
+            self.rb_values = sumcheck_challenges[:middle]
+            self.rc_values = sumcheck_challenges[middle:]
         if not last:
             wb_evaluation, wc_evaluation = ctx.to_ints(torch.stack([wb_m, wc_m]))
-            wb_evaluations.append(wb_evaluation)
-            wc_evaluations.append(wc_evaluation)
+            self.wb_evaluations.append(wb_evaluation)
+            self.wc_evaluations.append(wc_evaluation)
 
-            transcript.append(ctx.to_bytes_be(wb_evaluation))
-            alpha = transcript.random_challenge_as_field_element(ctx)
-            transcript.append(ctx.to_bytes_be(wc_evaluation))
-            beta = transcript.random_challenge_as_field_element(ctx)
-            claimed_sum = (alpha * wb_evaluation + beta * wc_evaluation) % ctx.p
+            self.transcript.append(ctx.to_bytes_be(wb_evaluation))
+            self.alpha = self.transcript.random_challenge_as_field_element(ctx)
+            self.transcript.append(ctx.to_bytes_be(wc_evaluation))
+            self.beta = self.transcript.random_challenge_as_field_element(ctx)
+            self.claimed_sum = (self.alpha * wb_evaluation + self.beta * wc_evaluation) % ctx.p
+        self.layer += 1
+        if self.done:
+            self.ev = None  # the layer tables: no step reads them again
 
-    return claimed_sum, layer_proofs, wb_evaluations, wc_evaluations, rb_values, rc_values
+    def state(self) -> tuple[dict, bytes]:
+        """The protocol state between two steps: JSON-ready values (field
+        elements as hex strings, under ``tpu_zk``'s checkpoint keys) and the
+        transcript's snapshot bytes."""
+        hexes = lambda values: [hex(v) for v in values]  # noqa: E731
+        meta = {
+            "layer": self.layer,
+            "proofs": [{"claimed_sum": hex(p.claimed_sum),
+                        "coeffs": [hexes(q.coefficients) for q in p.round_univariate_polynomials],
+                        "challenges": hexes(p.random_challenges)} for p in self.layer_proofs],
+            "wb": hexes(self.wb_evaluations),
+            "wc": hexes(self.wc_evaluations),
+            "alpha": hex(self.alpha),
+            "beta": hex(self.beta),
+            "rb": hexes(self.rb_values),
+            "rc": hexes(self.rc_values),
+            "ra": hex(self.random_challenge_a),
+            "claimed_sum": hex(self.claimed_sum),
+        }
+        return meta, self.transcript.snapshot()
+
+    @classmethod
+    def from_state(cls, circuit: Circuit, ev, meta: dict, transcript: bytes, succinct: bool = False,
+                   fused: bool = True) -> "LayerProver":
+        """The prover at the layer boundary that :meth:`state` gave ``meta``
+        and ``transcript`` for; ``ev`` is the circuit evaluated on the same
+        inputs."""
+        ctx = circuit.ctx
+        ints = lambda values: [int(v, 16) for v in values]  # noqa: E731
+        self = cls(circuit, ev, succinct, fused)
+        self.transcript = Transcript.from_snapshot(transcript)
+        self.layer_proofs = [
+            gkr_sumcheck.SumcheckProverProof(
+                claimed_sum=int(p["claimed_sum"], 16),
+                round_univariate_polynomials=[DenseUnivariatePolynomial(ctx, ints(c)) for c in p["coeffs"]],
+                random_challenges=ints(p["challenges"]),
+            )
+            for p in meta["proofs"]
+        ]
+        self.wb_evaluations, self.wc_evaluations = ints(meta["wb"]), ints(meta["wc"])
+        self.alpha, self.beta = int(meta["alpha"], 16), int(meta["beta"], 16)
+        self.rb_values, self.rc_values = ints(meta["rb"]), ints(meta["rc"])
+        self.random_challenge_a = int(meta["ra"], 16)
+        self.claimed_sum = int(meta["claimed_sum"], 16)
+        self.layer = meta["layer"]
+        if self.done:
+            self.ev = None
+        return self
+
+    def proof(self) -> Proof:
+        return Proof(
+            circuit_output=self.output,
+            claimed_sum=self.claimed_sum,
+            sumcheck_proofs=self.layer_proofs,
+            wb_evaluations=self.wb_evaluations,
+            wc_evaluations=self.wc_evaluations,
+        )
 
 
-def prove(circuit: Circuit, inputs, device=None) -> Proof:
+def _prove_layers(circuit: Circuit, ev, succinct: bool, fused: bool = True) -> LayerProver:
+    """Every layer's sumcheck over an evaluated circuit: the finished
+    :class:`LayerProver`."""
+    state = LayerProver(circuit, ev, succinct, fused)
+    while not state.done:
+        state.step()
+    return state
+
+
+def prove(circuit: Circuit, inputs, device=None, fused: bool = True) -> Proof:
     """Linear-time GKR prove; the same Proof and bytes as ``tpu_zk``'s
     ``sparse.prove`` and ``fused_sparse.prove``.
 
     ``inputs`` is a Montgomery ``[N, L]`` tensor (proved on its device, the
     practical form at 2^20+ inputs) or a host int list (proved on
-    ``device``, by default the package's default device).
+    ``device``, by default the package's default device).  ``fused`` runs
+    each layer's sumcheck rounds on the device sponge (the default, as in
+    ``tpu_zk``); ``fused=False`` syncs with the host transcript every round.
+    The alpha/beta squeezes between layers are on the host transcript either
+    way, as in ``tpu_zk``.
     """
     ev = circuit.evaluate(inputs, materialize=False, device=device)
-    claimed_sum, layer_proofs, wb_evaluations, wc_evaluations, _, _ = _prove_layers(circuit, ev, succinct=False)
-    return Proof(
-        circuit_output=ev.output,
-        claimed_sum=claimed_sum,
-        sumcheck_proofs=layer_proofs,
-        wb_evaluations=wb_evaluations,
-        wc_evaluations=wc_evaluations,
-    )
+    return _prove_layers(circuit, ev, False, fused).proof()
 
 
-def prove_succinct(circuit: Circuit, inputs, trusted_setup: TrustedSetup) -> SuccinctProof:
+def prove_succinct(circuit: Circuit, inputs, trusted_setup: TrustedSetup, fused: bool = True) -> SuccinctProof:
     """Succinct GKR (KZG-committed inputs) on the linear-time prover: the
     same proof and transcript bytes as ``tpu_zk``'s ``sparse.prove_succinct``
     and ``fused_sparse.prove_succinct`` (``gkr/src/succinct_gkr_protocol.rs``
@@ -217,22 +301,16 @@ def prove_succinct(circuit: Circuit, inputs, trusted_setup: TrustedSetup) -> Suc
     input_polynomial = MultilinearPolynomial(ctx, table)
     input_commitment = multilinear_kzg.commit_to_polynomial(input_polynomial, trusted_setup)
 
-    ev = circuit.evaluate(table, materialize=False)
-    output = ev.output
-    claimed_sum, layer_proofs, wb_evaluations, wc_evaluations, rb_values, rc_values = _prove_layers(
-        circuit, ev, succinct=True
-    )
-    del ev
-
+    layers = _prove_layers(circuit, circuit.evaluate(table, materialize=False), True, fused)
     return SuccinctProof(
-        circuit_output=output,
-        claimed_sum=claimed_sum,
-        sumcheck_proofs=layer_proofs,
-        wb_evaluations=wb_evaluations,
-        wc_evaluations=wc_evaluations,
+        circuit_output=layers.output,
+        claimed_sum=layers.claimed_sum,
+        sumcheck_proofs=layers.layer_proofs,
+        wb_evaluations=layers.wb_evaluations,
+        wc_evaluations=layers.wc_evaluations,
         input_polynomial_commitment=input_commitment,
-        input_rb_proof=multilinear_kzg.open_and_prove(input_polynomial, trusted_setup, rb_values),
-        input_rc_proof=multilinear_kzg.open_and_prove(input_polynomial, trusted_setup, rc_values),
+        input_rb_proof=multilinear_kzg.open_and_prove(input_polynomial, trusted_setup, layers.rb_values),
+        input_rc_proof=multilinear_kzg.open_and_prove(input_polynomial, trusted_setup, layers.rc_values),
     )
 
 

@@ -1,18 +1,19 @@
 """Degree-aware sumcheck over composed SumPolynomials (the GKR inner loop).
 
-Counterpart of :mod:`tpu_zk.sumcheck.gkr_sumcheck`, host-synced: per round
-the device evaluates the round univariate at t = 0..degree, one copy brings
-those degree+1 sums to the host, which interpolates to coefficient form,
-absorbs the **little-endian** coefficient bytes, squeezes the challenge, and
-the device folds the whole ``[p, k, N, L]`` working set at it (one K2
-launch, ``p*k`` batch rows).
-
-The sample points need no generic multiply (``tpu_zk/gkr/fused_sparse.py
-_round_lm`` :183-193): with d = hi - lo the factor tables at t are lo, hi,
-hi + d, hi + 2d, ... (K3), so each point costs only the k - 1 collapse
-products (K1) and one int64 limb sum.  The prover folds at every challenge,
-the last one included, so after the final round each factor table holds its
-value at the challenge point (``fused_sparse._round`` :120-135).
+Counterpart of :mod:`tpu_zk.sumcheck.gkr_sumcheck`.  Per round the device
+evaluates the round univariate at t = 0..degree (:func:`.fused._round_lazy_sums`),
+the evaluations are interpolated to coefficient form, the transcript absorbs
+the **little-endian** coefficient bytes and squeezes the challenge, and the
+device folds the whole ``[p, k, N, L]`` working set at it (one K2 launch,
+``p*k`` batch rows).  With ``fused=True`` (the default, as in ``tpu_zk``)
+the interpolation and the transcript run on the device too
+(:func:`.fused.fused_gkr_sumcheck_prove`, one K7 launch a round) and the
+host copies the coefficients and digests once, after the last round; with
+``fused=False`` one copy a round brings the degree+1 sums to the host, which
+interpolates and runs the host transcript.  The prover folds at every
+challenge, the last one included, so after the final round each factor
+table holds its value at the challenge point (``fused_sparse._round``
+:120-135).
 
 Reference parity: ``sumcheck_protocol/src/gkr_sumcheck/sumcheck_gkr_protocol.rs``
 (prove :24-67, verify :69-106, generate_round_univariate :113-143,
@@ -23,14 +24,14 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-import torch
-
 from ..fields import arith
 from ..fields.arith import FieldCtx
-from ..poly.composed import SumPolynomial, product_of_factors
+from ..poly.composed import SumPolynomial
 from ..poly.multilinear import fold
 from ..poly.univariate import DenseUnivariatePolynomial
+from ..transcript.device_fs import DeviceSponge
 from ..transcript.fiat_shamir import Transcript
+from . import fused as fused_prover
 
 
 @dataclass
@@ -55,39 +56,26 @@ def generate_round_univariate(sum_polynomial: SumPolynomial) -> list[int]:
     over the table is one exact int64 limb sum per point, reduced on the host.
     """
     ctx = sum_polynomial.ctx
-    stacked = sum_polynomial.stacked
-    k, N = stacked.shape[1], stacked.shape[2]
-    if N < 2:
-        raise ValueError("generate_round_univariate: no variable left to sum over")
-    lo, hi = stacked[:, :, : N // 2], stacked[:, :, N // 2 :]
-    step = arith.sub(ctx, hi, lo)
-    lazy = []
-    point = lo
-    for t in range(k + 1):
-        if t == 1:
-            point = hi
-        elif t > 1:
-            point = arith.add(ctx, point, step)
-        prod = product_of_factors(ctx, point.unbind(1))
-        lazy.append(prod.reshape(-1, ctx.L).sum(dim=0, dtype=torch.int64))
-    return arith.lazy_to_ints(ctx, torch.stack(lazy))
+    return arith.lazy_to_ints(ctx, fused_prover._round_lazy_sums(ctx, sum_polynomial.stacked))
 
 
 def prove(
     sum_polynomial: SumPolynomial,
     claimed_sum: int,
     transcript: Transcript,
+    fused: bool = True,
     absorb_claim: bool = True,
 ) -> SumcheckProverProof:
     """absorb_claim=False continues an in-flight sumcheck (the sparse GKR
     prover runs one logical sumcheck as two phase-wise working sets)."""
-    return prove_and_fold(sum_polynomial, claimed_sum, transcript, absorb_claim)[0]
+    return prove_and_fold(sum_polynomial, claimed_sum, transcript, fused, absorb_claim)[0]
 
 
 def prove_and_fold(
     sum_polynomial: SumPolynomial,
     claimed_sum: int,
     transcript: Transcript,
+    fused: bool = True,
     absorb_claim: bool = True,
 ) -> tuple[SumcheckProverProof, SumPolynomial]:
     """:func:`prove`, also returning the working set folded at every
@@ -97,6 +85,8 @@ def prove_and_fold(
     degree = sum_polynomial.degree
     if absorb_claim:
         transcript.append(ctx.to_bytes_be(claimed_sum))
+    if fused:
+        return _prove_fused(sum_polynomial, claimed_sum, transcript)
 
     x_values = list(range(degree + 1))
     round_polys: list[DenseUnivariatePolynomial] = []
@@ -117,6 +107,29 @@ def prove_and_fold(
         random_challenges=random_challenges,
     )
     return proof, current
+
+
+def _prove_fused(sum_polynomial: SumPolynomial, claimed_sum: int,
+                 transcript: Transcript) -> tuple[SumcheckProverProof, SumPolynomial]:
+    """The rounds on the device sponge, seeded from the host transcript;
+    one copy of the coefficients and digests, and of the sponge to re-sync
+    the host transcript, after the last round."""
+    ctx = sum_polynomial.ctx
+    n = sum_polynomial.number_of_variables
+    width = sum_polynomial.degree + 1
+    hasher = transcript._hasher
+    sponge = DeviceSponge.from_host(hasher, sum_polynomial.stacked.device)
+    coeffs, digests, state, buf, folded = fused_prover.fused_gkr_sumcheck_prove(
+        ctx, sum_polynomial.stacked, sponge.state, sponge.buf, sponge.pos)
+    flat = ctx.to_ints(coeffs.reshape(-1, ctx.L), mont=False)
+    transcript._hasher = DeviceSponge.to_host(state, buf, fused_prover.final_pos(len(hasher._buf), n, width * ctx.nbytes))
+    proof = SumcheckProverProof(
+        claimed_sum=claimed_sum,
+        round_univariate_polynomials=[DenseUnivariatePolynomial(ctx, flat[i * width : (i + 1) * width])
+                                      for i in range(n)],
+        random_challenges=[ctx.from_le_bytes_mod_order(bytes(d)) for d in digests.cpu().numpy()],
+    )
+    return proof, SumPolynomial(ctx, folded)
 
 
 def verify(proof: SumcheckProverProof, transcript: Transcript, ctx: FieldCtx) -> SumcheckVerifierProof:
