@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run tpu_zk_torch's basic sumcheck, GKR, MSM, KZG, succinct GKR, NTT, FRI, dense GKR, device sponge and checkpoints on one CUDA card and check its kernels.
+"""Run tpu_zk_torch's basic sumcheck, GKR, MSM, KZG, succinct GKR, NTT, FRI, dense GKR, device sponge, checkpoints and sharded paths on one CUDA card and check its kernels.
 
     python3 chip_smoke.py [--seed S]
 
@@ -124,7 +124,19 @@ Phases, in order; any failure raises and the exit code is nonzero:
    sumcheck checkpointed after round 12 and the depth-20 sparse GKR after
    layer 10, loaded and finished to the uninterrupted proofs; the field
    counters over one 2^20 prove; ``roofline.render_markdown`` over phase 10's
-   and 21's kernels.
+   and 21's kernels;
+24. every sharded path of ``tpu_zk_torch/parallel`` over a mesh of 4 shards,
+   all on the one card, at the full sizes of the one-device phases, each
+   output held against the one-device output of its phase (phases 8, 9, 15,
+   19 and 20 keep their 2^24 inputs on the host for it): the basic
+   sumcheck at 2^24 (K2 on every shard each round down to one row a shard),
+   GKR on ``tree_sum_circuit(24)`` (K7 once a round, K2 on every shard each
+   sharded round), the MSM of 2^24 points and of 2^24 - 3 (K4a's passes and
+   K4b on every shard), the NTT at 2^24 (K6 once a pass on every shard),
+   the Merkle tree of the 2^24 FRI codeword (K5 a level on every shard, then
+   the top two levels) and FRI at 2^24, blowup 4 (K7 once a round); each
+   path's first and warm time beside the one-device time, its peak memory
+   and launches; then ``dryrun_multichip(4)`` on the card.
 
 The next-to-last line is ``{"kernels": [...]}``, the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -496,6 +508,10 @@ def main_path(device, rng, log_n: int) -> dict:
     _, t_host_warm = sync_time(lambda: Prover(poly).prove(fused=False))
     (_, syncs_fused), t_fused_counted = sync_time(lambda: count_syncs(lambda: Prover(poly).prove()))
     (_, syncs_host), t_host_counted = sync_time(lambda: count_syncs(lambda: Prover(poly).prove(fused=False)))
+    if log_n == MAIN_LOG_N:  # phase 24's one-device reference, on the host
+        ONE_DEVICE["sumcheck"] = {"table": poly.table.cpu(), "claimed": proof.initial_claimed_sum,
+                                  "univariates": [u.to_ints() for u in proof.round_univariate_polynomials],
+                                  "warm_s": t_prove_warm, "host_synced_warm_s": t_host_warm}
     out = {
         "log_n": log_n, "to_mont_s": t_mont, "prove_first_s": t_prove, "verify_first_s": t_verify,
         "prove_warm_s": t_prove_warm, "verify_warm_s": t_verify_warm, "launches": launches,
@@ -561,6 +577,9 @@ def gkr_main_path(device, rng, depth: int) -> dict:
     (host_proof, syncs_host), t_host = sync_time(lambda: count_syncs(lambda: sparse.prove(circuit, table, fused=False)))
     if gkr_proof_to_json(host_proof, ctx.name) != gkr_proof_to_json(warm_proof, ctx.name):
         raise AssertionError(f"GKR depth {depth}: the fused and host-synced proofs differ")
+    if depth == max(GKR_DEPTHS):  # phase 24's one-device reference, on the host
+        ONE_DEVICE["gkr"] = {"inputs": table.cpu(), "json": gkr_proof_to_json(warm_proof, ctx.name),
+                             "warm_s": t_prove_warm, "host_synced_s": t_host}
     out = {
         "depth": depth, "gates": (1 << depth) - 1, "to_mont_s": t_mont, "evaluate_first_s": t_eval,
         "prove_first_s": t_prove, "verify_first_s": t_verify, "evaluate_warm_s": t_eval_warm,
@@ -1074,6 +1093,9 @@ def msm_alone(device, rng, setup, taus, rates: tuple) -> dict:
                    "points_per_s_warm": n / t_warm, "launches": launches, "stages_s": stages}
             out["runs"].append(run)
             log(f"MSM alone bn254 2^{log_n}: " + json.dumps(run))
+            if log_n == max(MSM_LOG_NS) and kind == "random":  # phase 24's one-device reference, on the host
+                ONE_DEVICE["msm"] = {"points": tuple(c.cpu() for c in points), "scalars": s.cpu(), "want": want,
+                                     "warm_s": t_warm}
             if kind == "random":
                 # every bucket of the launch, each pass, and K4b against the plain versions
                 k4 = k4_passes(dc, points, s, c, mp.UNIT, f"MSM 2^{log_n}", rates)
@@ -1522,6 +1544,9 @@ def ntt_path(device, gen, rng) -> dict:
             run["equals_stagewise"] = True
         out["runs"].append(run)
         log(f"NTT bn254_fr 2^{log_n}: " + json.dumps(run))
+        if log_n == max(NTT_LOG_NS):  # phase 24's one-device reference, on the host
+            ONE_DEVICE["ntt"] = {"table": table.cpu(), "forward": fwd.cpu(), "warm_ms": run["forward_warm_ms_events"],
+                                 "warm_s": t_fwd_warm}
         del t, table, fwd
 
     half = 1 << (POLY_LOG_N - 1)
@@ -1653,6 +1678,8 @@ def fri_path(device, gen, log_n: int) -> dict:
     if not ok or warm != proof:
         raise AssertionError(f"FRI 2^{log_n}: the warm proof differs or does not verify")
     del warm
+    if log_n == max(FRI_LOG_NS):  # phase 24's one-device reference, on the host
+        ONE_DEVICE["fri"] = {"codeword": codeword.cpu(), "proof": proof, "warm_s": t_prove_warm}
     noise = rand_canonical(ctx, (1 << log_n,), gen, device)  # random evaluations: degree far above 2^(log_n - 2)
     if fri.verify(cfg, fri.prove(cfg, noise, Transcript()), Transcript()):
         raise AssertionError(f"FRI 2^{log_n}: random evaluations pass the low-degree test")
@@ -2212,6 +2239,179 @@ def roofline_table(times: dict, k56: dict, rates: tuple, lrate: float, card: str
     return table
 
 
+# ---------------------------------------------------------------------------
+# phase 24: every sharded path (tpu_zk_torch/parallel) with SHARDS shards on the one card
+
+SHARDS = 4  # shards of the mesh, all on cuda:0: each shard's launches and every cross-shard reduction at full size
+MSM_SHORT = 3  # the second sharded MSM drops this many points, so that N is not a multiple of SHARDS
+ONE_DEVICE: dict = {}  # phases 8, 9, 15, 19 and 20 keep their 2^24 inputs (on the host) and outputs here
+
+
+def sharded_run(fn, check) -> dict:
+    """fn's first and warm call, each held by check(result); the launches
+    of the first, counted from 0, and the peak memory of both."""
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    got, t_first = sync_time(fn)
+    launches = read_launches()
+    check(got)
+    del got
+    got, t_warm = sync_time(fn)
+    check(got)
+    del got
+    return {"first_s": t_first, "warm_s": t_warm, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": launches}
+
+
+def require(what: str, ok: bool, detail) -> None:
+    if not ok:
+        raise AssertionError(f"{what}: {detail}")
+
+
+def sharded_paths(device, card: str) -> dict:
+    """Phase 24: each sharded path over a mesh of SHARDS shards on the card,
+    held against the one-device outputs of phases 8, 9, 15, 19 and 20 (whose
+    inputs come back from the host one at a time); each shard's kernel
+    launches counted; times beside the one-device ones."""
+    from tpu_zk_torch.circuit.layered import tree_sum_circuit
+    from tpu_zk_torch.curves.ec_device import DeviceCurve
+    from tpu_zk_torch.curves.msm_pippenger import msm_pippenger
+    from tpu_zk_torch.fields.arith import field_ctx
+    from tpu_zk_torch.fri.fri import FriConfig
+    from tpu_zk_torch.merkle.device_merkle import merkle_field_tree
+    from tpu_zk_torch.ntt.ntt import NTT
+    from tpu_zk_torch.parallel import sharded_fri, sharded_gkr
+    from tpu_zk_torch.parallel.dryrun import dryrun_multichip
+    from tpu_zk_torch.parallel.mesh import make_mesh
+    from tpu_zk_torch.parallel.sharded_merkle import sharded_merkle_field_tree
+    from tpu_zk_torch.parallel.sharded_msm import sharded_msm_points
+    from tpu_zk_torch.parallel.sharded_ntt import ShardedSixStep
+    from tpu_zk_torch.parallel.sharded_sumcheck import ShardedProver
+    from tpu_zk_torch.poly.multilinear import MultilinearPolynomial
+    from tpu_zk_torch.transcript.fiat_shamir import Transcript
+    from tpu_zk_torch.utils.serialize import gkr_proof_to_json
+
+    ctx = field_ctx("bn254_fr")
+    mesh = make_mesh(SHARDS, [device])
+    D, log_d = mesh.size, mesh.size.bit_length() - 1
+    out = {"shards": D, "devices": [str(d) for d in mesh.distinct], "card": card}
+
+    # the basic sumcheck at 2^24 against phase 8's proof (the sharded prover keeps the host transcript)
+    one = ONE_DEVICE.pop("sumcheck")
+    table, n = one["table"].to(device), MAIN_LOG_N
+
+    def check_sumcheck(proof):
+        require("sharded sumcheck 2^24", proof.initial_claimed_sum == one["claimed"]
+                and [u.to_ints() for u in proof.round_univariate_polynomials] == one["univariates"],
+                "the proof differs from the one-device proof")
+
+    run = sharded_run(lambda: ShardedProver(MultilinearPolynomial(ctx, table), mesh).prove(),
+                      check_sumcheck)
+    folds = D * (n - log_d) + log_d - 1  # each shard's K2 a round down to one row a shard, then the D gathered rows
+    require("sharded sumcheck 2^24", run["launches"]["fold"] == folds, f"K2 launched {run['launches']['fold']} "
+            f"times, not {folds} ({D} shards a round for {n - log_d} rounds, then {log_d - 1})")
+    out["sumcheck"] = {"log_n": n, **run, "one_device_fused_warm_s": one["warm_s"],
+                       "one_device_host_synced_warm_s": one["host_synced_warm_s"]}
+    log("sharded sumcheck 2^24: " + json.dumps(out["sumcheck"]))
+    del table, one
+
+    # GKR on tree_sum_circuit(24) against phase 9's proof JSON
+    one = ONE_DEVICE.pop("gkr")
+    depth = max(GKR_DEPTHS)
+    inputs, circuit = one["inputs"].to(device), tree_sum_circuit(ctx, depth)
+    run = sharded_run(lambda: sharded_gkr.prove(circuit, inputs, mesh),
+                      lambda proof: require(f"sharded GKR depth {depth}", gkr_proof_to_json(proof, ctx.name)
+                                            == one["json"], "the proof JSON differs from the one-device prove's"))
+    rounds = depth * (depth + 1)  # layer i's two phases of i + 1 rounds
+    shard_folds = sum(2 * D * (s - log_d) for s in range(1, depth + 1) if 1 << s >= 2 * D)
+    require(f"sharded GKR depth {depth}", run["launches"]["sponge_step"] == rounds,
+            f"K7 launched {run['launches']['sponge_step']} times, not once a round ({rounds})")
+    require(f"sharded GKR depth {depth}", run["launches"]["fold"] >= shard_folds,
+            f"K2 launched {run['launches']['fold']} times, fewer than each shard's fold every sharded round "
+            f"({shard_folds})")
+    out["gkr"] = {"depth": depth, **run, "k2_shard_folds": shard_folds, "one_device_fused_warm_s": one["warm_s"],
+                  "one_device_host_synced_s": one["host_synced_s"]}
+    log(f"sharded GKR depth {depth} ADD tree: " + json.dumps(out["gkr"]))
+    del inputs, circuit, one
+
+    # the MSM at 2^24 against phase 15's point, then 2^24 - MSM_SHORT points against a one-device MSM of them
+    one = ONE_DEVICE.pop("msm")
+    dc = DeviceCurve("bn254", device=device)
+    points, scalars = tuple(c.to(device) for c in one["points"]), one["scalars"].to(device)
+
+    def check_msm(counts: dict, what: str):
+        require(what, counts["msm_bucket_reduce"] == D and counts["msm_buckets"] >= 2 * D,
+                f"expected K4a's passes and one K4b launch on each of {D} shards, got {counts}")
+
+    run = sharded_run(lambda: sharded_msm_points(dc, mesh, points, scalars),
+                      lambda got: require("sharded MSM 2^24", dc.point_to_host(got) == one["want"],
+                                          "the point differs from the one-device MSM's"))
+    check_msm(run["launches"], "sharded MSM 2^24")
+    short = (1 << MSM_LOG_NS[-1]) - MSM_SHORT
+    sub_points, sub_scalars = tuple(c[:short] for c in points), scalars[:short]
+    want_short, t_short_one = sync_time(lambda: dc.point_to_host(msm_pippenger(dc.ctx, dc.b3, (sub_points, sub_scalars))))
+    run_short = sharded_run(lambda: sharded_msm_points(dc, mesh, sub_points, sub_scalars),
+                            lambda got: require(f"sharded MSM of {short} points", dc.point_to_host(got) == want_short,
+                                                "the point differs from the one-device MSM's"))
+    check_msm(run_short["launches"], f"sharded MSM of {short} points")
+    out["msm"] = {"points": 1 << MSM_LOG_NS[-1], **run, "one_device_warm_s": one["warm_s"],
+                  "short": {"points": short, **run_short, "one_device_first_s": t_short_one}}
+    log("sharded MSM bn254: " + json.dumps(out["msm"]))
+    del points, scalars, sub_points, sub_scalars, one
+
+    # the NTT at 2^24 against phase 19's forward transform
+    one = ONE_DEVICE.pop("ntt")
+    table, want = one["table"].to(device), one["forward"].to(device)
+    plan = NTT("bn254_fr", max(NTT_LOG_NS), device=device).plan(False, device)
+    sharded = ShardedSixStep(plan, mesh)
+    run = sharded_run(lambda: sharded(table),
+                      lambda got: require("sharded NTT 2^24", torch.equal(got, want),
+                                          "the transform differs from the one-device plan's"))
+    require("sharded NTT 2^24", run["launches"]["dif_pass"] == len(plan.ms) * D,
+            f"K6 launched {run['launches']['dif_pass']} times, not once a pass on each shard ({len(plan.ms) * D})")
+    out["ntt"] = {"log_n": plan.n_log2, "passes": plan.ms, **run, "warm_ms_events": event_ms(lambda: sharded(table), 5),
+                  "one_device_warm_s": one["warm_s"], "one_device_warm_ms_events": one["warm_ms"]}
+    log("sharded NTT 2^24: " + json.dumps(out["ntt"]))
+    del table, want, plan, sharded, one
+
+    # the Merkle tree over phase 20's 2^24 codeword against the one-device tree (its root is the FRI proof's first)
+    one = ONE_DEVICE.pop("fri")
+    codeword = one["codeword"].to(device)
+    tree, t_tree_one = sync_time(lambda: merkle_field_tree(ctx, codeword))
+    _, t_tree_one_warm = sync_time(lambda: merkle_field_tree(ctx, codeword))
+    require("one-device Merkle tree 2^24", tree[-1].cpu().numpy().tobytes() == one["proof"].roots[0],
+            "its root is not the FRI proof's first root")
+    run = sharded_run(lambda: sharded_merkle_field_tree(ctx, codeword, mesh),
+                      lambda got: require("sharded Merkle tree 2^24", len(got) == len(tree)
+                                          and all(torch.equal(a, b) for a, b in zip(got, tree)),
+                                          "the levels differ from the one-device tree's"))
+    leaves = codeword.shape[0]
+    k5 = D * ((leaves // D).bit_length()) + log_d  # each shard's levels, then the top log2(D)
+    require("sharded Merkle tree 2^24", run["launches"]["keccak_rows"] == k5,
+            f"K5 launched {run['launches']['keccak_rows']} times, not {k5}")
+    out["merkle"] = {"leaves": leaves, **run, "one_device_first_s": t_tree_one, "one_device_warm_s": t_tree_one_warm}
+    log("sharded Merkle tree 2^24: " + json.dumps(out["merkle"]))
+    del tree
+
+    # FRI at 2^24, blowup 4, against phase 20's proof
+    cfg = FriConfig("bn254_fr", max(FRI_LOG_NS), final_size_log2=4, num_queries=20, blowup_log2=2)
+    run = sharded_run(lambda: sharded_fri.prove(cfg, codeword, Transcript(), mesh),
+                      lambda proof: require("sharded FRI 2^24", proof == one["proof"],
+                                            "the proof differs from the one-device prove's"))
+    require("sharded FRI 2^24", run["launches"]["sponge_step"] == cfg.num_rounds and run["launches"]["keccak_rows"] > 0,
+            f"expected K5, and K7 once a round ({cfg.num_rounds}), got {run['launches']}")
+    out["fri"] = {"log_n": cfg.domain_log2, "rounds": cfg.num_rounds, **run, "one_device_warm_s": one["warm_s"]}
+    log("sharded FRI 2^24: " + json.dumps(out["fri"]))
+    del codeword, one
+
+    # the dry run: a sharded sumcheck round, the sharded MSM against the host, sharded GKR against one device
+    reset_launches()
+    _, t_dry = sync_time(lambda: dryrun_multichip(SHARDS, [device]))
+    out["dryrun"] = {"s": t_dry, "launches": read_launches()}
+    log("dryrun_multichip(4) on the card: " + json.dumps(out["dryrun"]))
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2290,10 +2490,16 @@ def main() -> None:
     roofline_table(times, k56, rates, lrate, smi.stdout.strip())
     log(f"phase 23 (K7, checkpoints, counters, roofline): {time.perf_counter() - t_new:.1f} s; "
         f"whole script so far {time.perf_counter() - t_script:.1f} s")
+    t_new = time.perf_counter()
+    sharded = sharded_paths(device, smi.stdout.strip())  # 24
+    log(f"phase 24 (sharded paths, {SHARDS} shards on one card, {sharded['card']}): "
+        f"{time.perf_counter() - t_new:.1f} s; whole script so far {time.perf_counter() - t_script:.1f} s")
     launches = {"sumcheck": sumcheck_runs[0]["launches"], "gkr": gkr_runs[0]["launches"],
                 "succinct": succinct_run["launches"], "ntt": ntt_run["launches"], "fri": fri_runs[0]["launches"],
                 "dense": dense_run["launches"], "dense_succinct": dense_run["succinct"]["launches"],
-                "interactive": interactive_run["launches"]}
+                "interactive": interactive_run["launches"],
+                **{f"sharded_{path}": sharded[path]["launches"]
+                   for path in ("sumcheck", "gkr", "msm", "ntt", "merkle", "fri", "dryrun")}}
 
     log(json.dumps({"kernels": kernels_line(times, launches, k4_small, k4_main["kernels"], k56, k7, rates)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -205,6 +205,9 @@ def test_import_without_jax():
         "import tpu_zk_torch.sumcheck.interactive, tpu_zk_torch.shamir.shamir, tpu_zk_torch.apps.fib\n"
         "import tpu_zk_torch.transcript.device_fs, tpu_zk_torch.transcript.kernels, tpu_zk_torch.sumcheck.fused\n"
         "import tpu_zk_torch.utils.counters, tpu_zk_torch.utils.roofline, tpu_zk_torch.utils.checkpoint\n"
+        "import tpu_zk_torch.parallel.mesh, tpu_zk_torch.parallel.sharded_sumcheck, tpu_zk_torch.parallel.sharded_msm\n"
+        "import tpu_zk_torch.parallel.sharded_merkle, tpu_zk_torch.parallel.sharded_ntt, tpu_zk_torch.parallel.sharded_fri\n"
+        "import tpu_zk_torch.parallel.sharded_gkr, tpu_zk_torch.parallel.dryrun\n"
         "import chip_smoke\n"
         "assert not [m for m in sys.modules if m == 'tpu_zk' or m.startswith('tpu_zk.')], 'imported tpu_zk'\n"
     )

@@ -44,7 +44,7 @@ import torch
 
 from .. import _build
 from ..fields import arith
-from ..fields.kernels import _check_limbs, _launch_args, _on_cpu, _ptr, _raise_on, _stream
+from ..fields.kernels import _check_limbs, _launch, _launch_args, _on_cpu, _ptr, _raise_on
 from . import ec_device
 from .ec_device import Point
 from .params import CURVES
@@ -153,11 +153,12 @@ def msm_buckets(ctx: arith.FieldCtx, b3: torch.Tensor, points: Point, entries: t
     if U == 0:
         return out
     p32, n0inv = _launch_args(ctx)
-    rc = _build.kernel_library().tzk_msm_buckets(
+    rc = _launch(
+        _build.kernel_library().tzk_msm_buckets, units.device,
         _ptr(points[0]), _ptr(points[1]), _ptr(points[2]), ctypes.c_int64(stride),
         None if entries is None else ctypes.c_void_p(entries.data_ptr()), ctypes.c_void_p(units.data_ptr()),
         _ptr(ctx.one_mont(units.device)), _ptr(out), ctypes.c_int64(U), ctypes.c_int(ctx.L),
-        ctypes.c_int(_b3_int(ctx)), p32, n0inv, _stream(),
+        ctypes.c_int(_b3_int(ctx)), p32, n0inv,
     )
     _raise_on(rc, "msm_buckets")
     msm_buckets.launches += 1
@@ -182,9 +183,10 @@ def msm_bucket_reduce(ctx: arith.FieldCtx, b3: torch.Tensor, buckets: torch.Tens
     W, B = buckets.shape[:2]
     out = torch.empty((W, -(-B // m), 3, ctx.L), dtype=torch.int32, device=buckets.device)
     p32, n0inv = _launch_args(ctx)
-    rc = _build.kernel_library().tzk_msm_bucket_reduce(
+    rc = _launch(
+        _build.kernel_library().tzk_msm_bucket_reduce, buckets.device,
         _ptr(buckets), _ptr(out), ctypes.c_int(W), ctypes.c_int(B), ctypes.c_int(m), ctypes.c_int(ctx.L),
-        ctypes.c_int(_b3_int(ctx)), p32, n0inv, _stream(),
+        ctypes.c_int(_b3_int(ctx)), p32, n0inv,
     )
     _raise_on(rc, "msm_bucket_reduce")
     msm_bucket_reduce.launches += 1

@@ -316,7 +316,15 @@ def sum_mod(ctx: FieldCtx, a: torch.Tensor, axis: int = 0) -> torch.Tensor:
     counters.bump(ctx.name, "add", a)
     if axis < 0:
         axis += a.dim()
-    lazy = a.sum(dim=axis, dtype=torch.int64)
+    return reduce_lazy(ctx, a.sum(dim=axis, dtype=torch.int64))
+
+
+def reduce_lazy(ctx: FieldCtx, lazy: torch.Tensor) -> torch.Tensor:
+    """int64 limb sums [..., W <= L+2] of Montgomery elements (fewer than
+    2^47 terms of strict limbs) -> their canonical Montgomery sums [..., L]:
+    one carry pass and one wide reduction.  Integer sums add exactly, so
+    partial sums from anywhere (a sharded table's shards) may be added
+    before it."""
     return reduce_wide_to_mont(ctx, carry_propagate(lazy, ctx.L + 4))
 
 
@@ -337,7 +345,7 @@ def mont_segment_sum(ctx: FieldCtx, vals: torch.Tensor, idx: torch.Tensor, size:
     """
     lazy = torch.zeros((size,) + vals.shape[1:], dtype=torch.int64, device=vals.device)
     lazy.index_add_(0, idx, vals.to(torch.int64))
-    return reduce_wide_to_mont(ctx, carry_propagate(lazy, ctx.L + 4))
+    return reduce_lazy(ctx, lazy)
 
 
 def lazy_to_ints(ctx: FieldCtx, lazy: torch.Tensor) -> list[int]:

@@ -135,8 +135,13 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _launch(entry, device: torch.device, *args) -> int:
+    """Call the kernel library's ``entry`` with ``args`` and the current
+    stream of ``device``, the card the operands lie on, with that card made
+    the current one: the runtime launches on the current card, which for a
+    shard on another card than the first is not the operands' unless set."""
+    with torch.cuda.device(device):
+        return entry(*args, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
 
 
 def mont_mul(ctx: arith.FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -152,9 +157,10 @@ def mont_mul(ctx: arith.FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Ten
     if M == 0:
         return out
     p32, n0inv = _launch_args(ctx)
-    rc = _build.kernel_library().tzk_mont_mul(
+    rc = _launch(
+        _build.kernel_library().tzk_mont_mul, a.device,
         _ptr(a), _ptr(b), _ptr(out), ctypes.c_int64(M), ctypes.c_int(int(b.dim() == 1)),
-        ctypes.c_int(ctx.L), p32, n0inv, _stream(),
+        ctypes.c_int(ctx.L), p32, n0inv,
     )
     _raise_on(rc, "mont_mul")
     mont_mul.launches += 1
@@ -182,9 +188,10 @@ def addsub(ctx: arith.FieldCtx, a: torch.Tensor, b: torch.Tensor, kind: str) -> 
     if M == 0:
         return out
     p32, _ = _launch_args(ctx)
-    rc = _build.kernel_library().tzk_addsub(
+    rc = _launch(
+        _build.kernel_library().tzk_addsub, a.device,
         _ptr(a), _ptr(b), _ptr(out), ctypes.c_int64(M), ctypes.c_int(int(b.dim() == 1)),
-        ctypes.c_int(int(kind == "sub")), ctypes.c_int(ctx.L), p32, _stream(),
+        ctypes.c_int(int(kind == "sub")), ctypes.c_int(ctx.L), p32,
     )
     _raise_on(rc, "addsub")
     addsub.launches += 1
@@ -218,10 +225,11 @@ def fold(ctx: arith.FieldCtx, flat: torch.Tensor, r: torch.Tensor, block: int):
     if B == 0:
         return folded, sums
     p32, n0inv = _launch_args(ctx)
-    rc = _build.kernel_library().tzk_fold(
+    rc = _launch(
+        _build.kernel_library().tzk_fold, flat.device,
         _ptr(flat), _ptr(r), _ptr(folded), ctypes.c_void_p(sums.data_ptr()),
         ctypes.c_int64(B), ctypes.c_int64(T), ctypes.c_int64(block),
-        ctypes.c_int(L), p32, n0inv, _stream(),
+        ctypes.c_int(L), p32, n0inv,
     )
     _raise_on(rc, "fold")
     fold.launches += 1

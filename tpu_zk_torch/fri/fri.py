@@ -42,7 +42,13 @@ def fold_codeword(ctx: FieldCtx, codeword: torch.Tensor, beta: torch.Tensor, inv
     inv_x: [N/2, L] inverses of the first-half domain points; inv2, beta: [L].
     """
     half = codeword.shape[0] // 2
-    fx, fnegx = codeword[:half], codeword[half:]
+    return fold_halves(ctx, codeword[:half], codeword[half:], beta, inv_x, inv2)
+
+
+def fold_halves(ctx: FieldCtx, fx: torch.Tensor, fnegx: torch.Tensor, beta: torch.Tensor, inv_x: torch.Tensor,
+                inv2: torch.Tensor) -> torch.Tensor:
+    """:func:`fold_codeword` on its two halves given apart (rows i of f(x)
+    and of f(-x), and the inverses of their x)."""
     even = arith.mont_mul(ctx, arith.add(ctx, fx, fnegx), inv2)
     odd = arith.mont_mul(ctx, arith.mont_mul(ctx, arith.sub(ctx, fx, fnegx), inv2), inv_x)
     return arith.add(ctx, even, arith.mont_mul(ctx, odd, beta))

@@ -71,12 +71,18 @@ def _out_weights(ctx: FieldCtx, layer_index: int, outs: torch.Tensor, ra: int, a
                  rb_values: list[int], rc_values: list[int]) -> torch.Tensor:
     """W_out gathered at each gate's output index: the sparse form of the
     dense pipeline's folded add_i/mul_i 'a' variables."""
-    device = outs.device
+    return _out_weight_table(ctx, layer_index, ra, alpha, beta, rb_values, rc_values, outs.device)[outs]
+
+
+def _out_weight_table(ctx: FieldCtx, layer_index: int, ra: int, alpha: int, beta: int, rb_values: list[int],
+                      rc_values: list[int], device) -> torch.Tensor:
+    """W_out at every output index: eq(ra, .) for layer 0, else
+    alpha eq(rb, .) + beta eq(rc, .)."""
     if layer_index == 0:
-        return eq_table(ctx, [ra], device)[outs]  # the layer-0 output variable is 1 bit
+        return eq_table(ctx, [ra], device)  # the layer-0 output variable is 1 bit
     a = arith.mont_mul(ctx, eq_table(ctx, rb_values, device), ctx.scalar(alpha, device=device))
     b = arith.mont_mul(ctx, eq_table(ctx, rc_values, device), ctx.scalar(beta, device=device))
-    return arith.add(ctx, a, b)[outs]
+    return arith.add(ctx, a, b)
 
 
 def _phase1_tables(ctx: FieldCtx, layer: Layer, w_table: torch.Tensor, w_out: torch.Tensor):
@@ -172,13 +178,7 @@ class LayerProver:
     def step(self) -> None:
         """Prove the next layer and fold its claims into the next one's."""
         ctx, layer_index = self.ctx, self.layer
-        layer = self.circuit.layers[layer_index]
-        device = self.ev.layer_tables[-1].device
-        w_out = _out_weights(ctx, layer_index, layer.on(device)[2], self.random_challenge_a, self.alpha, self.beta,
-                             self.rb_values, self.rc_values)
-        sumcheck_proof, wb_m, wc_m = _layer_sumcheck(
-            ctx, layer, self.ev.layer_tables[layer_index + 1], w_out, self.claimed_sum, self.transcript, self.fused
-        )
+        sumcheck_proof, wb_m, wc_m = self._layer_sumcheck(layer_index)
         self.layer_proofs.append(sumcheck_proof)
         last = layer_index == len(self.circuit.layers) - 1
 
@@ -200,6 +200,15 @@ class LayerProver:
         self.layer += 1
         if self.done:
             self.ev = None  # the layer tables: no step reads them again
+
+    def _layer_sumcheck(self, layer_index: int):
+        """The layer's two-phase sumcheck: (proof, w(b*), w(rc))."""
+        layer = self.circuit.layers[layer_index]
+        device = self.ev.layer_tables[-1].device
+        w_out = _out_weights(self.ctx, layer_index, layer.on(device)[2], self.random_challenge_a, self.alpha,
+                             self.beta, self.rb_values, self.rc_values)
+        return _layer_sumcheck(self.ctx, layer, self.ev.layer_tables[layer_index + 1], w_out, self.claimed_sum,
+                               self.transcript, self.fused)
 
     def state(self) -> tuple[dict, bytes]:
         """The protocol state between two steps: JSON-ready values (field

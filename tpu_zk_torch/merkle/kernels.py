@@ -31,7 +31,7 @@ import ctypes
 import torch
 
 from .. import _build
-from ..fields.kernels import _on_cpu, _ptr, _raise_on, _stream
+from ..fields.kernels import _launch, _on_cpu, _ptr, _raise_on
 from ..transcript.keccak import _RC, _ROT, RATE
 
 _M32 = 0xFFFFFFFF
@@ -110,8 +110,9 @@ def keccak_rows(data: torch.Tensor, out: torch.Tensor | None = None) -> torch.Te
         return out
     if n == 0:
         return out
-    rc = _build.kernel_library().tzk_keccak_rows(
-        ctypes.c_void_p(data.data_ptr()), _ptr(out), ctypes.c_int64(n), ctypes.c_int(w), _stream())
+    rc = _launch(
+        _build.kernel_library().tzk_keccak_rows, data.device,
+        ctypes.c_void_p(data.data_ptr()), _ptr(out), ctypes.c_int64(n), ctypes.c_int(w))
     _raise_on(rc, "keccak_rows")
     keccak_rows.launches += 1
     return out

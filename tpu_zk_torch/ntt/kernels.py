@@ -38,7 +38,7 @@ import torch
 
 from .. import _build
 from ..fields import arith
-from ..fields.kernels import _check_limbs, _launch_args, _on_cpu, _ptr, _raise_on, _stream
+from ..fields.kernels import _check_limbs, _launch, _launch_args, _on_cpu, _ptr, _raise_on
 from ..fields.kernels import add_plain, mont_mul_plain, sub_plain
 
 MAX_LOG_M = 10  # the largest radix the kernel takes (csrc/ntt.cu kNttMaxLogM)
@@ -125,11 +125,12 @@ def _dif_pass(ctx, x, tws, pre, scale, dst, count: bool):
     counts = torch.zeros(A * m * C + 1024, dtype=torch.int64, device=x.device) if count else None
     p32, n0inv = _launch_args(ctx)
     null = ctypes.c_void_p(None)
-    rc = _build.kernel_library().tzk_ntt_pass(
+    rc = _launch(
+        _build.kernel_library().tzk_ntt_pass, x.device,
         _ptr(x), _ptr(tws) if tws.numel() else null, null if pre is None else _ptr(pre),
         null if scale is None else _ptr(scale), null if dst is None else _ptr(dst), _ptr(out), ctypes.c_int64(A),
         ctypes.c_int(log_m), ctypes.c_int64(C), ctypes.c_int(L), p32, n0inv,
-        null if counts is None else _ptr(counts), _stream(),
+        null if counts is None else _ptr(counts),
     )
     _raise_on(rc, "dif_pass")
     dif_pass.launches += 1

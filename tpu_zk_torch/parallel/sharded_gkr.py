@@ -1,0 +1,239 @@
+"""Sharded linear-time (Libra) GKR prover: gates and working sets over a mesh.
+
+Counterpart of :mod:`tpu_zk.parallel.sharded_gkr`.  ``tpu_zk``'s builds on
+its fused prover's pool of compiled programs; this one builds on the port's
+prover, :mod:`tpu_zk_torch.gkr.sparse` (its phase tables, its layer loop
+:class:`~tpu_zk_torch.gkr.sparse.LayerProver`, and the rounds of
+:mod:`tpu_zk_torch.sumcheck.fused`):
+
+  - **gates** are cut into D blocks of consecutive gates, the last padded
+    with no-op ADD gates whose output weight is zeroed, so padding adds
+    exact zeros;
+  - **segment sums**: each shard sums its gates' terms into int64 lazy limb
+    sums over all S buckets (``mont_segment_sum``'s ``index_add_``); each
+    shard's bucket block is the sum of every shard's lazy block, reduced
+    once, so the tables are the one-device tables exactly.  A bucket sums
+    at most G terms of 16-bit limbs: exact below 2^47 gates;
+  - **the working set** ``[p, k, S, L]`` is interleaved: the low
+    ``log2(D)`` index bits are the shard axis (shard d holds rows
+    j D + d), so every fold of the top variable stays on one shard (K2);
+  - **each round** adds the shards' lazy sums of the round univariate's
+    evaluations (``fused._round_lazy_sums``: p S / 2 terms in all, below
+    2^48 a limb up to S = 2^31, as on one device) and reduces them once
+    (``lazy_to_mont``); the interpolated coefficients are absorbed on the
+    replicated device sponge, one K7 launch on each distinct device, and
+    each shard folds at its device's challenge;
+  - **the last log2(D) rounds** of each phase run on the gathered D-row
+    working set on the primary (:func:`fused.fused_gkr_sumcheck_prove`
+    with the primary's sponge); the host transcript is re-synced from it
+    at the end of the phase and seeds the next phase's replicas.
+
+Layers narrower than 2D rows take the one-device layer sumcheck, as in
+``tpu_zk``.  The proof (claimed sums, wb/wc evaluations, challenges,
+coefficients) equals :func:`tpu_zk_torch.gkr.sparse.prove`'s.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..circuit.layered import Circuit, Layer
+from ..fields import arith
+from ..fields.arith import FieldCtx
+from ..gkr import sparse
+from ..gkr.protocol import Proof
+from ..poly.multilinear import fold
+from ..poly.univariate import DenseUnivariatePolynomial
+from ..sumcheck import fused
+from ..sumcheck.gkr_sumcheck import SumcheckProverProof
+from ..transcript.device_fs import DeviceSponge, pack_bytes_le
+from ..transcript.fiat_shamir import Transcript
+from ..transcript.kernels import sponge_step
+from .mesh import Mesh, copy_to, cross_shard_sum, gather, replicated
+
+
+def _interleave(mesh: Mesh, table: torch.Tensor) -> list[torch.Tensor]:
+    """[S, L] logical -> D shards [S/D, L]: shard d, row j = logical row j D + d."""
+    S, L = table.shape
+    t = table.view(S // mesh.size, mesh.size, L)
+    return [copy_to(t[:, d].contiguous(), dev) for d, dev in enumerate(mesh.devices)]
+
+
+def _pad_gates(mesh: Mesh, layer: Layer) -> list[tuple[torch.Tensor, ...]]:
+    """The layer's gates in D blocks of ceil(G/D), each on its shard's device:
+    (lefts, rights, outs, is_add [g, 1], valid [g, 1] or None).  The last
+    blocks are padded with gate (0, 0, 0, ADD), valid False; the others are
+    views of the layer's cached device arrays."""
+    G, D = len(layer.lefts), mesh.size
+    per = -(-G // D)
+    out = []
+    for k, dev in enumerate(mesh.devices):
+        lo, hi = min(k * per, G), min((k + 1) * per, G)
+        lefts, rights, outs, is_add = (t[lo:hi] for t in layer.on(dev))
+        pad = per - (hi - lo)
+        valid = None
+        if pad:
+            zeros = torch.zeros(pad, dtype=torch.int64, device=dev)
+            lefts, rights, outs = (torch.cat([t, zeros]) for t in (lefts, rights, outs))
+            is_add = torch.cat([is_add, torch.ones((pad, 1), dtype=torch.bool, device=dev)])
+            valid = (torch.arange(per, device=dev) < hi - lo)[:, None]
+        out.append((lefts, rights, outs, is_add, valid))
+    return out
+
+
+def _mask_rows(x: torch.Tensor, valid: torch.Tensor | None) -> torch.Tensor:
+    """Zero the rows of padding gates."""
+    return x if valid is None else torch.where(valid, x, 0)
+
+
+def _segment_sums(ctx: FieldCtx, mesh: Mesh, terms: list[torch.Tensor], buckets: list[torch.Tensor],
+                  S: int) -> list[torch.Tensor]:
+    """Each shard's gate terms [g, 2, L] summed into S interleaved buckets
+    (bucket d M + j is logical row j D + d) -> D shards [M, 2, L] of the
+    exact Montgomery sums: shard d gets buckets d M .. d M + M - 1 of every
+    shard's lazy sums, added before one reduction."""
+    D = mesh.size
+    M = S // D
+    acc: list[torch.Tensor | None] = [None] * D
+    for k, dev in enumerate(mesh.devices):
+        lazy = torch.zeros((S,) + terms[k].shape[1:], dtype=torch.int64, device=dev)
+        lazy.index_add_(0, buckets[k], terms[k].to(torch.int64))
+        for d, ddev in enumerate(mesh.devices):
+            part = copy_to(lazy[d * M : (d + 1) * M], ddev)
+            acc[d] = part.clone() if acc[d] is None else acc[d].add_(part)
+        del lazy
+    return [arith.reduce_lazy(ctx, a) for a in acc]
+
+
+def _phase1_sharded(ctx: FieldCtx, mesh: Mesh, gates, w_rep: dict, w_int: list[torch.Tensor],
+                    w_out: list[torch.Tensor], S: int) -> list[torch.Tensor]:
+    """Phase-1 working sets [2, 2, M, L] on each shard, [[w, A1 + M1], [A2, 1]]
+    (``sparse._phase1_tables`` on each shard's gates)."""
+    D, M = mesh.size, S // mesh.size
+    terms, buckets = [], []
+    for (lefts, rights, _, is_add, _), wo, dev in zip(gates, w_out, mesh.devices):
+        wr = arith.mont_mul(ctx, wo, w_rep[dev][rights])
+        terms.append(torch.stack([torch.where(is_add, wo, wr), torch.where(is_add, wr, 0)], dim=1))
+        buckets.append((lefts % D) * M + lefts // D)
+    tables = _segment_sums(ctx, mesh, terms, buckets, S)
+    return [torch.stack([torch.stack([wi, t[:, 0]]), torch.stack([t[:, 1], ctx.one_mont(dev).expand(M, ctx.L)])])
+            for wi, t, dev in zip(w_int, tables, mesh.devices)]
+
+
+def _phase2_sharded(ctx: FieldCtx, mesh: Mesh, gates, w_int: list[torch.Tensor], w_out: list[torch.Tensor],
+                    b_star: list[int], wb_m: torch.Tensor, S: int) -> list[torch.Tensor]:
+    """Phase-2 working sets [2, 2, M, L], [[A', w(b*) + w], [M' w(b*), w]]
+    (``sparse._phase2_tables`` on each shard's gates)."""
+    D, M = mesh.size, S // mesh.size
+    eq_b = {dev: sparse.eq_table(ctx, b_star, dev) for dev in mesh.distinct}
+    wb = replicated(mesh, wb_m)
+    terms, buckets = [], []
+    for (lefts, rights, _, is_add, _), wo, dev in zip(gates, w_out, mesh.devices):
+        w_eq = arith.mont_mul(ctx, wo, eq_b[dev][lefts])
+        terms.append(torch.stack([torch.where(is_add, w_eq, 0), torch.where(is_add, 0, w_eq)], dim=1))
+        buckets.append((rights % D) * M + rights // D)
+    tables = _segment_sums(ctx, mesh, terms, buckets, S)
+    return [torch.stack([torch.stack([t[:, 0], arith.add(ctx, wi, wb[dev])]),
+                         torch.stack([arith.mont_mul(ctx, t[:, 1], wb[dev]), wi])])
+            for wi, t, dev in zip(w_int, tables, mesh.devices)]
+
+
+def _round_sharded(ctx: FieldCtx, mesh: Mesh, stacked: list[torch.Tensor], vinv: torch.Tensor, sponges: dict,
+                   coeffs: torch.Tensor, digest: torch.Tensor, challenge: torch.Tensor) -> list[torch.Tensor]:
+    """One round over the interleaved working sets [p, k, M, L]: the shards'
+    lazy sums added and reduced once, the coefficients interpolated (into
+    ``coeffs`` [k+1, L], plain) and absorbed LE on every replica of the
+    sponge (``digest`` and ``challenge`` the primary's), and each shard's
+    fold at its device's challenge (K2)."""
+    lazy = cross_shard_sum(mesh, [fused._round_lazy_sums(ctx, st) for st in stacked])
+    coeffs.copy_(arith.from_mont(ctx, fused._interpolate_mont(ctx, vinv, arith.lazy_to_mont(ctx, lazy))))
+    data = pack_bytes_le(ctx, coeffs)
+    r = {}
+    for dev, sponge in sponges.items():
+        if dev == mesh.primary:
+            d, r[dev] = digest, challenge
+        else:
+            d = torch.empty(32, dtype=torch.uint8, device=dev)
+            r[dev] = torch.empty(ctx.L, dtype=torch.int32, device=dev)
+        sponge_step(sponge.state, sponge.buf, sponge.pos, copy_to(data, dev), d, r[dev], ctx)
+    return [fold(ctx, st, 0, r[dev]) for st, dev in zip(stacked, mesh.devices)]
+
+
+def _run_phase_rounds(ctx: FieldCtx, mesh: Mesh, stacked: list[torch.Tensor], transcript: Transcript,
+                      claimed_sum: int) -> tuple[SumcheckProverProof, torch.Tensor]:
+    """All s = log2(S) rounds of one phase: sharded while each shard holds
+    two rows or more, then the D rows on the primary.  Returns the phase's
+    proof and the working set folded at every challenge ([p, k, 1, L])."""
+    D, M = mesh.size, stacked[0].shape[2]
+    n_sharded = M.bit_length() - 1
+    n = n_sharded + D.bit_length() - 1
+    width = stacked[0].shape[1] + 1
+    vinv = fused._vandermonde_on(ctx.name, width, mesh.primary)
+    hasher = transcript._hasher
+    sponges = {dev: DeviceSponge.from_host(hasher, dev) for dev in mesh.distinct}
+    coeffs, digests, challenges = fused._round_outputs(ctx, n_sharded, width, mesh.primary)
+    for rnd in range(n_sharded):
+        stacked = _round_sharded(ctx, mesh, stacked, vinv, sponges, coeffs[rnd], digests[rnd], challenges[rnd])
+    primary = sponges[mesh.primary]
+    tail_coeffs, tail_digests, state, buf, folded = fused.fused_gkr_sumcheck_prove(
+        ctx, gather(mesh, stacked, dim=2), primary.state, primary.buf, primary.pos)
+    flat = ctx.to_ints(torch.cat([coeffs, tail_coeffs]).reshape(-1, ctx.L), mont=False)
+    transcript._hasher = DeviceSponge.to_host(state, buf, fused.final_pos(len(hasher._buf), n, width * ctx.nbytes))
+    proof = SumcheckProverProof(
+        claimed_sum=claimed_sum,
+        round_univariate_polynomials=[DenseUnivariatePolynomial(ctx, flat[i * width : (i + 1) * width])
+                                      for i in range(n)],
+        random_challenges=[ctx.from_le_bytes_mod_order(bytes(d))
+                           for d in torch.cat([digests, tail_digests]).cpu().numpy()],
+    )
+    return proof, folded
+
+
+class ShardedLayerProver(sparse.LayerProver):
+    """:class:`~tpu_zk_torch.gkr.sparse.LayerProver` with each layer of 2D
+    rows or more proved over the mesh."""
+
+    def __init__(self, circuit: Circuit, ev, mesh: Mesh):
+        super().__init__(circuit, ev)
+        self.mesh = mesh
+
+    def _layer_sumcheck(self, layer_index: int):
+        ctx, mesh = self.ctx, self.mesh
+        w_table = self.ev.layer_tables[layer_index + 1]
+        S = w_table.shape[0]
+        if S & (S - 1):
+            raise ValueError(f"layer table of {S} entries: GKR needs a power of two")
+        if S < 2 * mesh.size or S % mesh.size:
+            return super()._layer_sumcheck(layer_index)  # too narrow to shard, as in tpu_zk
+        layer = self.circuit.layers[layer_index]
+        gates = _pad_gates(mesh, layer)
+        weights = {dev: sparse._out_weight_table(ctx, layer_index, self.random_challenge_a, self.alpha, self.beta,
+                                                 self.rb_values, self.rc_values, dev) for dev in mesh.distinct}
+        w_out = [_mask_rows(weights[dev][outs], valid) for (_, _, outs, _, valid), dev in zip(gates, mesh.devices)]
+        w_int = _interleave(mesh, w_table)
+
+        self.transcript.append(ctx.to_bytes_be(self.claimed_sum))
+        stacked = _phase1_sharded(ctx, mesh, gates, replicated(mesh, w_table), w_int, w_out, S)
+        ph1, done1 = _run_phase_rounds(ctx, mesh, stacked, self.transcript, self.claimed_sum)
+        wb_m = done1[0, 0, 0]
+        stacked = _phase2_sharded(ctx, mesh, gates, w_int, w_out, ph1.random_challenges, wb_m, S)
+        ph2, done2 = _run_phase_rounds(ctx, mesh, stacked, self.transcript, self.claimed_sum)
+        proof = SumcheckProverProof(
+            claimed_sum=self.claimed_sum,
+            round_univariate_polynomials=ph1.round_univariate_polynomials + ph2.round_univariate_polynomials,
+            random_challenges=ph1.random_challenges + ph2.random_challenges,
+        )
+        return proof, wb_m, done2[1, 1, 0]
+
+
+def prove(circuit: Circuit, inputs, mesh: Mesh) -> Proof:
+    """Sharded linear-time GKR prove; the same Proof and bytes as
+    :func:`tpu_zk_torch.gkr.sparse.prove`.  ``inputs``: a Montgomery
+    [N, L] tensor or host ints; the circuit is evaluated on the primary."""
+    if isinstance(inputs, torch.Tensor):
+        inputs = copy_to(inputs, mesh.primary)
+    ev = circuit.evaluate(inputs, materialize=False, device=mesh.primary)
+    prover = ShardedLayerProver(circuit, ev, mesh)
+    while not prover.done:
+        prover.step()
+    return prover.proof()

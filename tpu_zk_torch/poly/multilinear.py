@@ -47,15 +47,21 @@ def fold_and_half_sums(ctx: FieldCtx, table: torch.Tensor, r: torch.Tensor):
     One K2 launch; its per-block sums never straddle the two halves because
     the block divides T/2.
     """
+    folded, lazy = fold_and_lazy_half_sums(ctx, table, r)
+    return folded, arith.reduce_lazy(ctx, lazy)
+
+
+def fold_and_lazy_half_sums(ctx: FieldCtx, table: torch.Tensor, r: torch.Tensor):
+    """:func:`fold_and_half_sums` with the half-sums left as int64 sums of
+    strict wide limbs [2, L+2], which add exactly across tables (a sharded
+    round adds every shard's before :func:`~tpu_zk_torch.fields.arith.reduce_lazy`)."""
     N, L = table.shape
     T = N // 2
     if N < 4 or N & (N - 1):
         raise ValueError(f"fold_and_half_sums: table of {N} rows (needs a power of two >= 4)")
     folded, wide = kernels.fold(ctx, table.reshape(1, N, L).contiguous(), r, min(FOLD_BLOCK, T // 2))
     G = wide.shape[1]
-    lazy = wide[0].reshape(2, G // 2, L + 2).sum(dim=1, dtype=torch.int64)
-    strict = arith.carry_propagate(lazy, L + 4)
-    return folded[0], arith.reduce_wide_to_mont(ctx, strict)
+    return folded[0], wide[0].reshape(2, G // 2, L + 2).sum(dim=1, dtype=torch.int64)
 
 
 def sum_halves(ctx: FieldCtx, table: torch.Tensor) -> torch.Tensor:

@@ -41,7 +41,7 @@ import torch
 from .. import _build
 from ..fields import kernels as field_kernels
 from ..fields.arith import FieldCtx
-from ..fields.kernels import _launch_args, _on_cpu, _ptr, _raise_on, _stream
+from ..fields.kernels import _launch, _launch_args, _on_cpu, _ptr, _raise_on
 from .keccak import _RC, _ROT, RATE
 
 _M32 = 0xFFFFFFFF
@@ -214,11 +214,12 @@ def sponge_step(state: torch.Tensor, buf: torch.Tensor, pos: torch.Tensor, data:
         chal = _ptr(challenge)
     else:
         p32, n0inv, r2, chal = None, ctypes.c_uint32(0), None, None
-    rc = _build.kernel_library().tzk_sponge_step(
+    rc = _launch(
+        _build.kernel_library().tzk_sponge_step, state.device,
         ctypes.c_void_p(state.data_ptr()), ctypes.c_void_p(buf.data_ptr()), ctypes.c_void_p(pos.data_ptr()),
         ctypes.c_void_p(data.data_ptr()), ctypes.c_int64(data.shape[0]),
         ctypes.c_void_p(digest.data_ptr()) if digest is not None else None, chal,
-        ctypes.c_int(ctx.L if ctx is not None else 0), p32, n0inv, r2, _stream())
+        ctypes.c_int(ctx.L if ctx is not None else 0), p32, n0inv, r2)
     _raise_on(rc, "sponge_step")
     sponge_step.launches += 1
 
