@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run tpu_zk_torch's basic sumcheck, GKR, MSM, KZG, succinct GKR, NTT, FRI, dense GKR, device sponge, checkpoints and sharded paths on one CUDA card and check its kernels.
+"""Run tpu_zk_torch's basic sumcheck, GKR, MSM, KZG, succinct GKR, NTT, FRI, dense GKR, device sponge, checkpoints and sharded paths (in one process and in two) on one CUDA card and check its kernels.
 
     python3 chip_smoke.py [--seed S]
 
@@ -136,7 +136,26 @@ Phases, in order; any failure raises and the exit code is nonzero:
    the Merkle tree of the 2^24 FRI codeword (K5 a level on every shard, then
    the top two levels) and FRI at 2^24, blowup 4 (K7 once a round); each
    path's first and warm time beside the one-device time, its peak memory
-   and launches; then ``dryrun_multichip(4)`` on the card.
+   and launches; then ``dryrun_multichip(4)`` on the card; each input is
+   written to a temporary directory (np.save) and each output's digest
+   kept (sha256 of the proof's claimed sum and univariates, of the GKR
+   proof JSON, of the NTT output's bytes and the input's, of the Merkle
+   root and of the FRI proof; the MSMs' affine points);
+25. the same paths in a process group of two (torch.multiprocessing's
+   spawn, ``init_distributed("file://...", 2, rank, backend="gloo")``:
+   NCCL refuses two ranks on one card), each process holding 2 of the 4
+   shards on the card (``make_mesh(4, ["cuda:0"])``), loading the kernels
+   phase 2 built and phase 24's inputs: the basic sumcheck at 2^24, GKR on
+   ``tree_sum_circuit(24)``, the MSM of 2^24 and 2^24 - 3 points, the NTT at
+   2^24 forward and inverse, the Merkle tree and FRI at 2^24, then
+   ``dryrun_multichip(4)`` over the group; every output of each process,
+   first call and warm, equal to phase 24's (the MSM as a group element)
+   and to the other's; each process's first and warm time, peak memory,
+   launches, bytes sent across the group and seconds inside its
+   collectives beside phase 24's times; a probe of gloo's transport (the
+   card's copies to and from pageable and pinned host memory, and gloo's
+   collectives on 512 MiB).  A process that raises fails the script at
+   once, and so does the group's timeout or the join's.
 
 The next-to-last line is ``{"kernels": [...]}``, the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -147,10 +166,12 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -2247,20 +2268,25 @@ MSM_SHORT = 3  # the second sharded MSM drops this many points, so that N is not
 ONE_DEVICE: dict = {}  # phases 8, 9, 15, 19 and 20 keep their 2^24 inputs (on the host) and outputs here
 
 
-def sharded_run(fn, check) -> dict:
+def sharded_run(fn, check, mesh=None) -> dict:
     """fn's first and warm call, each held by check(result); the launches
-    of the first, counted from 0, and the peak memory of both."""
+    of the first, counted from 0, the bytes it sent across ``mesh``'s
+    process group and the seconds inside those collectives, and the peak
+    memory of both."""
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    if mesh is not None:
+        mesh.group_bytes, mesh.group_s = 0, 0.0
     got, t_first = sync_time(fn)
-    launches = read_launches()
+    run = {"launches": read_launches()}
+    if mesh is not None:
+        run["group_bytes"], run["group_s"] = mesh.group_bytes, mesh.group_s
     check(got)
     del got
     got, t_warm = sync_time(fn)
     check(got)
     del got
-    return {"first_s": t_first, "warm_s": t_warm, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "launches": launches}
+    return {"first_s": t_first, "warm_s": t_warm, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, **run}
 
 
 def require(what: str, ok: bool, detail) -> None:
@@ -2268,11 +2294,15 @@ def require(what: str, ok: bool, detail) -> None:
         raise AssertionError(f"{what}: {detail}")
 
 
-def sharded_paths(device, card: str) -> dict:
+def sharded_paths(device, card: str, inputs_dir: str) -> dict:
     """Phase 24: each sharded path over a mesh of SHARDS shards on the card,
     held against the one-device outputs of phases 8, 9, 15, 19 and 20 (whose
     inputs come back from the host one at a time); each shard's kernel
-    launches counted; times beside the one-device ones."""
+    launches counted; times beside the one-device ones.  Each input is
+    also written to ``inputs_dir`` (np.save) for phase 25, and
+    ``out["digests"]`` keeps what phase 25 must reproduce: the digests
+    (:func:`digest`) of phase 24's outputs, each equal, as checked here, to
+    its one-device output."""
     from tpu_zk_torch.circuit.layered import tree_sum_circuit
     from tpu_zk_torch.curves.ec_device import DeviceCurve
     from tpu_zk_torch.curves.msm_pippenger import msm_pippenger
@@ -2294,11 +2324,14 @@ def sharded_paths(device, card: str) -> dict:
     ctx = field_ctx("bn254_fr")
     mesh = make_mesh(SHARDS, [device])
     D, log_d = mesh.size, mesh.size.bit_length() - 1
-    out = {"shards": D, "devices": [str(d) for d in mesh.distinct], "card": card}
+    out = {"shards": D, "devices": [str(d) for d in mesh.distinct], "card": card, "digests": {}}
+    digests = out["digests"]
 
     # the basic sumcheck at 2^24 against phase 8's proof (the sharded prover keeps the host transcript)
     one = ONE_DEVICE.pop("sumcheck")
     table, n = one["table"].to(device), MAIN_LOG_N
+    np.save(os.path.join(inputs_dir, "sumcheck_table.npy"), one["table"].numpy())
+    digests["sumcheck"] = digest(json.dumps([one["claimed"], one["univariates"]]))
 
     def check_sumcheck(proof):
         require("sharded sumcheck 2^24", proof.initial_claimed_sum == one["claimed"]
@@ -2319,6 +2352,8 @@ def sharded_paths(device, card: str) -> dict:
     one = ONE_DEVICE.pop("gkr")
     depth = max(GKR_DEPTHS)
     inputs, circuit = one["inputs"].to(device), tree_sum_circuit(ctx, depth)
+    np.save(os.path.join(inputs_dir, "gkr_inputs.npy"), one["inputs"].numpy())
+    digests["gkr"] = digest(one["json"])
     run = sharded_run(lambda: sharded_gkr.prove(circuit, inputs, mesh),
                       lambda proof: require(f"sharded GKR depth {depth}", gkr_proof_to_json(proof, ctx.name)
                                             == one["json"], "the proof JSON differs from the one-device prove's"))
@@ -2338,6 +2373,9 @@ def sharded_paths(device, card: str) -> dict:
     one = ONE_DEVICE.pop("msm")
     dc = DeviceCurve("bn254", device=device)
     points, scalars = tuple(c.to(device) for c in one["points"]), one["scalars"].to(device)
+    for name, t in zip(("x", "y", "z", "scalars"), (*one["points"], one["scalars"])):
+        np.save(os.path.join(inputs_dir, f"msm_{name}.npy"), t.numpy())
+    digests["msm"] = one["want"]
 
     def check_msm(counts: dict, what: str):
         require(what, counts["msm_bucket_reduce"] == D and counts["msm_buckets"] >= 2 * D,
@@ -2354,6 +2392,7 @@ def sharded_paths(device, card: str) -> dict:
                             lambda got: require(f"sharded MSM of {short} points", dc.point_to_host(got) == want_short,
                                                 "the point differs from the one-device MSM's"))
     check_msm(run_short["launches"], f"sharded MSM of {short} points")
+    digests["msm_short"] = want_short
     out["msm"] = {"points": 1 << MSM_LOG_NS[-1], **run, "one_device_warm_s": one["warm_s"],
                   "short": {"points": short, **run_short, "one_device_first_s": t_short_one}}
     log("sharded MSM bn254: " + json.dumps(out["msm"]))
@@ -2362,6 +2401,8 @@ def sharded_paths(device, card: str) -> dict:
     # the NTT at 2^24 against phase 19's forward transform
     one = ONE_DEVICE.pop("ntt")
     table, want = one["table"].to(device), one["forward"].to(device)
+    np.save(os.path.join(inputs_dir, "ntt_table.npy"), one["table"].numpy())
+    digests["ntt_forward"], digests["ntt_inverse"] = digest(one["forward"]), digest(one["table"])
     plan = NTT("bn254_fr", max(NTT_LOG_NS), device=device).plan(False, device)
     sharded = ShardedSixStep(plan, mesh)
     run = sharded_run(lambda: sharded(table),
@@ -2377,6 +2418,8 @@ def sharded_paths(device, card: str) -> dict:
     # the Merkle tree over phase 20's 2^24 codeword against the one-device tree (its root is the FRI proof's first)
     one = ONE_DEVICE.pop("fri")
     codeword = one["codeword"].to(device)
+    np.save(os.path.join(inputs_dir, "fri_codeword.npy"), one["codeword"].numpy())
+    digests["merkle"], digests["fri"] = digest(one["proof"].roots[0]), digest(repr(one["proof"]))
     tree, t_tree_one = sync_time(lambda: merkle_field_tree(ctx, codeword))
     _, t_tree_one_warm = sync_time(lambda: merkle_field_tree(ctx, codeword))
     require("one-device Merkle tree 2^24", tree[-1].cpu().numpy().tobytes() == one["proof"].roots[0],
@@ -2410,6 +2453,201 @@ def sharded_paths(device, card: str) -> dict:
     out["dryrun"] = {"s": t_dry, "launches": read_launches()}
     log("dryrun_multichip(4) on the card: " + json.dumps(out["dryrun"]))
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 25: every sharded path in two processes (a gloo group), each holding 2 of the 4 shards on the one card
+
+TWO_PROCESSES = 2  # ranks of the group; NCCL refuses two ranks on one card, gloo stages through the host
+GROUP_TIMEOUT_S = 300  # a collective waiting on a process that is gone fails after this
+PHASE25_JOIN_S = 600  # the whole phase; a child still running then fails the script
+PROBE_BYTES = 1 << 29  # the transport probe's int64 table a process
+
+
+def transport_probe(mesh, device) -> dict:
+    """Seconds (best of two, both processes in step) of the pieces of gloo's
+    transport on a PROBE_BYTES int64 table a process: the copies between
+    the card and pageable or pinned host memory, and gloo's all_reduce,
+    reduce_scatter_tensor, all_gather (of half the table) and send plus
+    receive (half each way) on host tensors."""
+    import torch.distributed as dist
+
+    n = PROBE_BYTES // 8
+    x = torch.ones(n, dtype=torch.int64, device=device)
+    host, pinned = x.cpu(), torch.empty(n, dtype=torch.int64, pin_memory=True)
+    mine, gathered = torch.empty(n // 2, dtype=torch.int64), [torch.empty(n // 2, dtype=torch.int64)
+                                                              for _ in range(mesh.world)]
+    received = torch.empty(n // 2, dtype=torch.int64)
+    peer = 1 - mesh.rank
+
+    def swap():
+        ops = [dist.P2POp(dist.isend, host[: n // 2], peer), dist.P2POp(dist.irecv, received, peer)]
+        for request in dist.batch_isend_irecv(ops):
+            request.wait()
+
+    def best(fn) -> float:
+        times = []
+        for _ in range(2):
+            dist.barrier()
+            times.append(sync_time(fn)[1])
+        return min(times)
+
+    return {"bytes": PROBE_BYTES, "d2h_pageable_s": best(lambda: x.cpu()),
+            "d2h_pinned_s": best(lambda: pinned.copy_(x)),
+            "h2d_pageable_s": best(lambda: host.to(device)), "h2d_pinned_s": best(lambda: x.copy_(pinned)),
+            "gloo_all_reduce_s": best(lambda: dist.all_reduce(host)),
+            "gloo_reduce_scatter_s": best(lambda: dist.reduce_scatter_tensor(mine, host)),
+            "gloo_all_gather_half_s": best(lambda: dist.all_gather(gathered, host[: n // 2])),
+            "gloo_send_recv_half_s": best(swap)}
+
+
+def digest(x) -> str:
+    """sha256 (hex) of a str's UTF-8, of bytes, or of a tensor's bytes."""
+    if isinstance(x, torch.Tensor):
+        x = x.contiguous().cpu().numpy().reshape(-1).view(np.uint8)
+    elif isinstance(x, str):
+        x = x.encode()
+    return hashlib.sha256(x).hexdigest()
+
+
+def two_process_child(rank: int, store: str, inputs_dir: str, want: dict, out_dir: str, device: str) -> None:
+    """Phase 25 in one process of the group: joins the gloo group, makes
+    ``make_mesh(SHARDS, [device])`` (this rank's 2 of the 4 shards on the
+    card), loads the kernels phase 2 built, runs every sharded path on
+    phase 24's inputs (from ``inputs_dir``, whose sizes set the paths'
+    sizes), first call and warm, each
+    output's digest held equal to phase 24's (``want``), and writes its
+    times, peak memory, launches, bytes sent across the group and digests
+    to ``out_dir/<rank>.json``.  Anything that fails raises, and the
+    parent's join fails the script."""
+    import torch.distributed as dist
+
+    from tpu_zk_torch import _build
+    from tpu_zk_torch.circuit.layered import tree_sum_circuit
+    from tpu_zk_torch.curves.ec_device import DeviceCurve
+    from tpu_zk_torch.fields.arith import field_ctx
+    from tpu_zk_torch.fri.fri import FriConfig
+    from tpu_zk_torch.ntt.ntt import NTT
+    from tpu_zk_torch.parallel import sharded_fri, sharded_gkr
+    from tpu_zk_torch.parallel.dryrun import dryrun_multichip
+    from tpu_zk_torch.parallel.mesh import init_distributed, make_mesh
+    from tpu_zk_torch.parallel.sharded_merkle import sharded_merkle_field_tree
+    from tpu_zk_torch.parallel.sharded_msm import sharded_msm_points
+    from tpu_zk_torch.parallel.sharded_ntt import ShardedSixStep
+    from tpu_zk_torch.parallel.sharded_sumcheck import ShardedProver
+    from tpu_zk_torch.poly.multilinear import MultilinearPolynomial
+    from tpu_zk_torch.transcript.fiat_shamir import Transcript
+    from tpu_zk_torch.utils.serialize import gkr_proof_to_json
+
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # the group's sockets on the loopback: no hostname lookup
+    t_start = time.perf_counter()
+    device = torch.device(device)
+    init_distributed(f"file://{store}", TWO_PROCESSES, rank, backend="gloo", timeout=GROUP_TIMEOUT_S)
+    try:
+        _build.kernel_library()  # phase 2's build, found by its sources' hash: loaded, not compiled
+        mesh = make_mesh(SHARDS, [device])
+        ctx = field_ctx("bn254_fr")
+        out = {"rank": rank, "shards": list(mesh.local), "paths": {}}
+
+        def load(name: str) -> torch.Tensor:
+            return torch.from_numpy(np.load(os.path.join(inputs_dir, f"{name}.npy"))).to(device)
+
+        def run(path: str, fn, keep) -> None:
+            kept = []
+            r = sharded_run(fn, lambda got: kept.append(keep(got)), mesh)
+            require(f"rank {rank}: two-process {path}", kept == [want[path]] * 2,
+                    f"{kept} differ from phase 24's {want[path]}")
+            out["paths"][path] = {**r, "digest": kept[0]}
+
+        table = load("sumcheck_table")
+        run("sumcheck", lambda: ShardedProver(MultilinearPolynomial(ctx, table), mesh).prove(),
+            lambda p: digest(json.dumps([p.initial_claimed_sum, [u.to_ints() for u in p.round_univariate_polynomials]])))
+        del table
+        inputs = load("gkr_inputs")
+        circuit = tree_sum_circuit(ctx, inputs.shape[0].bit_length() - 1)
+        run("gkr", lambda: sharded_gkr.prove(circuit, inputs, mesh), lambda p: digest(gkr_proof_to_json(p, ctx.name)))
+        del inputs, circuit
+        dc = DeviceCurve("bn254", device=device)
+        points, scalars = tuple(load(f"msm_{c}") for c in "xyz"), load("msm_scalars")
+        run("msm", lambda: sharded_msm_points(dc, mesh, points, scalars), dc.point_to_host)
+        short = points[0].shape[0] - MSM_SHORT
+        run("msm_short", lambda: sharded_msm_points(dc, mesh, tuple(c[:short] for c in points), scalars[:short]),
+            dc.point_to_host)
+        del points, scalars
+        table = load("ntt_table")
+        ntt = NTT("bn254_fr", table.shape[0].bit_length() - 1, device=device)
+        forward, inverse = (ShardedSixStep(ntt.plan(inv, device), mesh) for inv in (False, True))
+        run("ntt_forward", lambda: forward(table), digest)
+        transformed = forward(table)
+        run("ntt_inverse", lambda: inverse(transformed), digest)
+        del table, transformed, forward, inverse
+        codeword = load("fri_codeword")
+        run("merkle", lambda: sharded_merkle_field_tree(ctx, codeword, mesh), lambda levels: digest(levels[-1]))
+        cfg = FriConfig("bn254_fr", codeword.shape[0].bit_length() - 1, final_size_log2=4, num_queries=20,
+                        blowup_log2=2)
+        run("fri", lambda: sharded_fri.prove(cfg, codeword, Transcript(), mesh), lambda p: digest(repr(p)))
+        del codeword
+        out["transport"] = transport_probe(mesh, device)
+        reset_launches()
+        _, t_dry = sync_time(lambda: dryrun_multichip(SHARDS, [device]))
+        out["paths"]["dryrun"] = {"first_s": t_dry, "launches": read_launches()}
+        out["process_s"] = time.perf_counter() - t_start
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def join_group(procs, timeout: float) -> None:
+    """Wait for every process of the group: one that raised fails the wait
+    at once (torch's ProcessRaisedException, the others terminated), and so
+    does the deadline (TimeoutError).  No process outlives the call."""
+    deadline = time.perf_counter() + timeout
+    try:
+        while not procs.join(timeout=max(deadline - time.perf_counter(), 0.01)):
+            if time.perf_counter() >= deadline:
+                raise TimeoutError(f"phase 25: the process group did not finish within {timeout} s")
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+
+
+def two_process_paths(sharded: dict, inputs_dir: str, device) -> dict:
+    """Phase 25: the sharded paths of phase 24 in a group of two processes
+    (gloo, a ``file://`` store), each with 2 of the SHARDS shards on the
+    card, on phase 24's inputs; each process's outputs equal to phase 24's
+    and to the other's; times beside phase 24's."""
+    import torch.multiprocessing as mp
+
+    torch.cuda.empty_cache()  # phase 24's tensors are gone: the children get the card's memory
+    out_dir = os.path.join(inputs_dir, "out")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    procs = mp.start_processes(two_process_child, nprocs=TWO_PROCESSES, join=False, start_method="spawn",
+                               args=(os.path.join(inputs_dir, "store"), inputs_dir, sharded["digests"], out_dir,
+                                     str(device)))
+    join_group(procs, PHASE25_JOIN_S)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for rank in range(TWO_PROCESSES):
+        with open(os.path.join(out_dir, f"{rank}.json")) as f:
+            ranks.append(json.load(f))
+    for path, want in sharded["digests"].items():
+        got = [r["paths"][path]["digest"] for r in ranks]
+        require(f"two-process {path}", all(g == (list(want) if isinstance(want, tuple) else want) for g in got),
+                f"the ranks' outputs {got} differ from phase 24's {want} or from each other")
+    one_process = {"sumcheck": sharded["sumcheck"], "gkr": sharded["gkr"], "msm": sharded["msm"],
+                   "msm_short": sharded["msm"]["short"], "ntt_forward": sharded["ntt"], "merkle": sharded["merkle"],
+                   "fri": sharded["fri"], "dryrun": {"first_s": sharded["dryrun"]["s"]}}
+    for path in ranks[0]["paths"]:
+        row = {f"rank{r['rank']}": {k: v for k, v in r["paths"][path].items() if k != "digest"} for r in ranks}
+        if path in one_process:
+            row["phase24_one_process"] = {k: one_process[path].get(k) for k in ("first_s", "warm_s", "peak_mem_gib")}
+        log(f"two-process {path}: " + json.dumps(row))
+    log("two-process transport probe: " + json.dumps({f"rank{r['rank']}": r["transport"] for r in ranks}))
+    return {"processes": TWO_PROCESSES, "shards": SHARDS, "wall_s": wall, "ranks": ranks}
 
 
 def main() -> None:
@@ -2490,16 +2728,24 @@ def main() -> None:
     roofline_table(times, k56, rates, lrate, smi.stdout.strip())
     log(f"phase 23 (K7, checkpoints, counters, roofline): {time.perf_counter() - t_new:.1f} s; "
         f"whole script so far {time.perf_counter() - t_script:.1f} s")
-    t_new = time.perf_counter()
-    sharded = sharded_paths(device, smi.stdout.strip())  # 24
-    log(f"phase 24 (sharded paths, {SHARDS} shards on one card, {sharded['card']}): "
-        f"{time.perf_counter() - t_new:.1f} s; whole script so far {time.perf_counter() - t_script:.1f} s")
+    with tempfile.TemporaryDirectory() as inputs_dir:  # phase 24's inputs, for phase 25's processes
+        t_new = time.perf_counter()
+        sharded = sharded_paths(device, smi.stdout.strip(), inputs_dir)  # 24
+        log(f"phase 24 (sharded paths, {SHARDS} shards on one card, {sharded['card']}): "
+            f"{time.perf_counter() - t_new:.1f} s; whole script so far {time.perf_counter() - t_script:.1f} s")
+        t_new = time.perf_counter()
+        two = two_process_paths(sharded, inputs_dir, device)  # 25
+        log(f"phase 25 (sharded paths, {TWO_PROCESSES} processes x {SHARDS // TWO_PROCESSES} shards on one card, "
+            f"{sharded['card']}): {time.perf_counter() - t_new:.1f} s; whole script so far "
+            f"{time.perf_counter() - t_script:.1f} s")
     launches = {"sumcheck": sumcheck_runs[0]["launches"], "gkr": gkr_runs[0]["launches"],
                 "succinct": succinct_run["launches"], "ntt": ntt_run["launches"], "fri": fri_runs[0]["launches"],
                 "dense": dense_run["launches"], "dense_succinct": dense_run["succinct"]["launches"],
                 "interactive": interactive_run["launches"],
                 **{f"sharded_{path}": sharded[path]["launches"]
-                   for path in ("sumcheck", "gkr", "msm", "ntt", "merkle", "fri", "dryrun")}}
+                   for path in ("sumcheck", "gkr", "msm", "ntt", "merkle", "fri", "dryrun")},
+                **{f"two_process_rank{r['rank']}_{path}": run["launches"]
+                   for r in two["ranks"] for path, run in r["paths"].items()}}
 
     log(json.dumps({"kernels": kernels_line(times, launches, k4_small, k4_main["kernels"], k56, k7, rates)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -261,13 +261,21 @@ def test_make_mesh_names_no_card_by_itself():
 
 
 def test_init_distributed(monkeypatch):
-    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    """No coordinator: a no-op.  A coordinator without a world size or a
+    rank raises ValueError, and the default backend, NCCL, raises where
+    torch has none (tests/test_torch_distributed.py forms the groups)."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
     assert tmesh.init_distributed() is False
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmesh.init_distributed("tcp://localhost:29500", 2, 0)
+    with pytest.raises(ValueError, match="rank"):
+        tmesh.init_distributed("tcp://localhost:29500", 2)
     monkeypatch.setenv("MASTER_ADDR", "localhost")
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(ValueError, match="world size"):
         tmesh.init_distributed()
+    if not torch.distributed.is_nccl_available():
+        with pytest.raises(RuntimeError, match="NCCL"):
+            tmesh.init_distributed("tcp://localhost:29500", 2, 0)
+    assert not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("d", SHARDS)

@@ -22,6 +22,8 @@ from tpu_zk.transcript import fiat_shamir as jfs
 from tpu_zk.transcript.keccak import keccak256 as j_keccak256
 from tpu_zk_torch import device as tdevice
 from tpu_zk_torch.fields.arith import field_ctx
+from tpu_zk_torch.gkr import sparse
+from tpu_zk_torch.poly import multilinear
 from tpu_zk_torch.poly.multilinear import MultilinearPolynomial
 from tpu_zk_torch.sumcheck import basic
 from tpu_zk_torch.transcript import fiat_shamir
@@ -34,6 +36,7 @@ torch.set_num_threads(1)  # small tensors: more threads only take cores from the
 SLICE_LOG_N = 10
 SLICE_FIELDS = ["bn254_fq", "bn254_fr"]
 PARTIAL_VARS = (0, 2, 5)
+ROUND_LOG_N = 8
 
 
 def rand_vals(p, n, seed):
@@ -95,6 +98,18 @@ def _mle_inputs():
     return rand_vals(p, 64, 3), rand_vals(p, 6, 4)
 
 
+def _round_inputs():
+    """(a 2^8 table, a challenge) over BN254 Fr."""
+    p = field_ctx("bn254_fr").p
+    return rand_vals(p, 1 << ROUND_LOG_N, 6), rand_vals(p, 1, 7)[0]
+
+
+def _segment_inputs():
+    """(values, bucket indices, buckets) of a small segment sum over BN254 Fr."""
+    rng = np.random.default_rng(8)
+    return rand_vals(field_ctx("bn254_fr").p, 64, 9), rng.integers(0, 16, 64).tolist(), 16
+
+
 def _slice_values(name):
     return rand_vals(field_ctx(name).p, 1 << SLICE_LOG_N, 5)
 
@@ -106,16 +121,27 @@ def _tamper(proof):
 
 def reference(port_jsons: dict) -> dict:
     """Everything the tests compare against, computed by tpu_zk (in the
-    child process): an MLE's sum, bytes, evaluation and partial
+    child process): a first round's univariate, a fused round and a
+    segment sum; an MLE's sum, bytes, evaluation and partial
     evaluations; per field the proof JSON of the slice's table, and
     tpu_zk's verdicts on the port's proof (as is, tampered)."""
     from tpu_zk.poly.multilinear import MultilinearPolynomial as JMLE
     from tpu_zk.sumcheck import basic as jbasic
     from tpu_zk.utils import serialize as jser
 
+    from tpu_zk.gkr.sparse import mont_segment_sum as j_mont_segment_sum
+    from tpu_zk.poly.multilinear import fused_round as j_fused_round, round0_univariate as j_round0_univariate
+
+    fr = j_field_ctx("bn254_fr")
+    table, r = _round_inputs()
+    univariate, folded = j_fused_round(fr, fr.array(table), fr.scalar(r))
+    vals, idx, size = _segment_inputs()
+    names = {"round0_univariate": np.asarray(j_round0_univariate(fr, fr.array(table))),
+             "fused_round": (np.asarray(univariate), np.asarray(folded)),
+             "mont_segment_sum": np.asarray(j_mont_segment_sum(fr, fr.array(vals), np.asarray(idx, np.int32), size))}
     vals, point = _mle_inputs()
-    mle = JMLE.from_ints(j_field_ctx("bn254_fr"), vals)
-    out = {"mle": {
+    mle = JMLE.from_ints(fr, vals)
+    out = {"names": names, "mle": {
         "sum": mle.sum(), "bytes": mle.convert_to_bytes(), "evaluate": mle.evaluate(point),
         "partial": [mle.partial_evaluate(var, point[var]).to_ints() for var in PARTIAL_VARS],
     }}
@@ -150,6 +176,43 @@ def test_multilinear_matches_tpu_zk(ref):
     assert port.evaluate(point) == want["evaluate"]
     for var, partial in zip(PARTIAL_VARS, want["partial"]):
         assert port.partial_evaluate(var, point[var]).to_ints() == partial
+
+
+def test_round0_univariate_matches_tpu_zk(ref):
+    ctx = field_ctx("bn254_fr")
+    table, _ = _round_inputs()
+    got = multilinear.round0_univariate(ctx, ctx.array(table))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), ref["names"]["round0_univariate"])
+
+
+def test_fused_round_matches_tpu_zk(ref):
+    ctx = field_ctx("bn254_fr")
+    table, r = _round_inputs()
+    univariate, folded = multilinear.fused_round(ctx, ctx.array(table), ctx.scalar(r))
+    want_univariate, want_folded = ref["names"]["fused_round"]
+    np.testing.assert_array_equal(univariate.numpy().view(np.uint32), want_univariate)
+    np.testing.assert_array_equal(folded.numpy().view(np.uint32), want_folded)
+    # the next round's univariate of the folded table: the plain half sums
+    assert ctx.to_ints(univariate, mont=False) == ctx.to_ints(multilinear.round0_univariate(ctx, folded), mont=False)
+
+
+def test_mont_segment_sum_matches_tpu_zk(ref):
+    ctx = field_ctx("bn254_fr")
+    vals, idx, size = _segment_inputs()
+    got = sparse.mont_segment_sum(ctx, ctx.array(vals), torch.tensor(idx), size)
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), ref["names"]["mont_segment_sum"])
+    assert ctx.to_ints(got) == [sum(v for v, i in zip(vals, idx) if i == b) % ctx.p for b in range(size)]
+
+
+def test_package_names_match_tpu_zk():
+    import tpu_zk
+
+    import tpu_zk_torch
+    from tpu_zk_torch.fields import arith
+
+    assert tpu_zk_torch.field_ctx is arith.field_ctx
+    assert tpu_zk_torch.__all__ == tpu_zk.__all__ == ["field_ctx"]
+    assert tpu_zk_torch.__version__ == tpu_zk.__version__
 
 
 # -- the whole slice -----------------------------------------------------------

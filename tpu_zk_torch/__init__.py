@@ -6,3 +6,8 @@ asks for the CPU (:mod:`tpu_zk_torch.device`).  CUDA tensors go through the
 hand-written kernels of ``csrc/``, which are built with nvcc into
 ``build/tpu_zk_torch/`` the first time a CUDA tensor reaches one.
 """
+
+from .fields.arith import field_ctx
+
+__all__ = ["field_ctx"]
+__version__ = "0.1.0"

@@ -38,6 +38,8 @@ import torch
 from ..circuit.layered import Circuit, Layer
 from ..fields import arith
 from ..fields.arith import FieldCtx
+# tpu_zk.gkr.sparse's public name; this module calls arith.mont_segment_sum, which gkr/breakdown.py wraps
+from ..fields.arith import mont_segment_sum  # noqa: F401
 from ..kzg import multilinear_kzg
 from ..kzg.trusted_setup import TrustedSetup
 from ..poly.composed import SumPolynomial

@@ -1,7 +1,10 @@
-"""Sharded provers over a mesh of devices: the counterpart of :mod:`tpu_zk.parallel`.
+"""Sharded provers over a mesh of devices and processes: the counterpart of :mod:`tpu_zk.parallel`.
 
-One Python process drives D shards (:mod:`.mesh`); a sharded array is a list
-of D tensors, one per shard, and the collectives are device-to-device copies.
-Each sharded function gives the same integers, proof bytes and group
-elements as its one-device counterpart in this package.
+A mesh has D shards over this process's devices and, after
+:func:`.mesh.init_distributed`, over every process of the
+``torch.distributed`` group (:mod:`.mesh`); a sharded array is a list of D
+entries, None where a shard belongs to another process, and every movement
+between shards is a collective of :mod:`.mesh`.  Each sharded function gives
+every process the same integers, proof bytes and group elements as its
+one-device counterpart in this package.
 """

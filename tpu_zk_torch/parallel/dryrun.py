@@ -24,7 +24,10 @@ from .sharded_sumcheck import _sharded_fold, _sharded_half_sums
 
 def dryrun_multichip(n_devices: int, devices=None) -> None:
     """Run the three sharded paths over ``n_devices`` shards on ``devices``
-    (default: every visible card) and assert each against one device."""
+    (default: this process's cards) and, after
+    :func:`~.mesh.init_distributed`, over every process of the group, as
+    ``tpu_zk``'s runs over ``jax.devices()``; assert each against one
+    device, in every process."""
     mesh = make_mesh(n_devices, devices)
     D = mesh.size
 
@@ -35,7 +38,7 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     univ = _sharded_half_sums(ctx, mesh, shards)
     folded = _sharded_fold(ctx, mesh, shards, replicated(mesh, ctx.scalar(999, device=mesh.primary)))
     assert tuple(univ.shape) == (2, ctx.L)
-    assert all(tuple(t.shape) == (M // 2, ctx.L) for t in folded)
+    assert all(tuple(folded[i].shape) == (M // 2, ctx.L) for i in mesh.local)
 
     # the sharded MSM (per-shard Pippenger, then a tree of the partial sums) against the host
     dc = DeviceCurve("bn254", device=mesh.primary)

@@ -6,16 +6,17 @@ into D blocks of consecutive rows.  Each commit round:
   - builds the round's tree with :func:`.sharded_merkle.sharded_tree_flat`
     (each shard's subtree, the top ``log2(D)`` levels on the primary);
   - absorbs the root and squeezes beta on the replicated device sponge: one
-    K7 launch on each distinct device, all absorbing the same bytes;
+    K7 launch on each distinct device of every process, all absorbing the
+    same bytes;
   - folds: row i pairs with row i + N/2, so shard k's rows pair with shard
     k + D/2's; new shard j takes half of old shard j // 2's rows and the
-    same half of old shard j // 2 + D/2's.
+    same half of old shard j // 2 + D/2's (:func:`.mesh.exchange`).
 
-Once a fold would leave fewer than 2 rows a shard, the codeword is gathered
-and the remaining rounds take the one-device path, as in ``tpu_zk``.  The
-transcript bytes, roots, final codeword and openings equal
-:func:`tpu_zk_torch.fri.fri.prove`'s, which keeps this transcript on the
-host.
+Every process gathers each round's codeword for the query phase.  Once a
+fold would leave fewer than 2 rows a shard, the remaining rounds take the
+one-device path, as in ``tpu_zk``.  The transcript bytes, roots, final
+codeword and openings equal :func:`tpu_zk_torch.fri.fri.prove`'s, which
+keeps this transcript on the host.
 """
 
 from __future__ import annotations
@@ -29,23 +30,19 @@ from ..sumcheck.fused import final_pos
 from ..transcript.device_fs import DeviceSponge
 from ..transcript.fiat_shamir import Transcript
 from ..transcript.kernels import sponge_step
-from .mesh import Mesh, copy_to, gather, shard_leading
+from .mesh import Mesh, copy_to, exchange, gather, replicated, shard_leading
 from .sharded_merkle import shardable, sharded_tree_flat
 
 
-def _sharded_fold(ctx: FieldCtx, mesh: Mesh, shards: list[torch.Tensor], beta: dict, inv_x: dict,
-                  inv2: dict) -> list[torch.Tensor]:
+def _sharded_fold(ctx: FieldCtx, mesh: Mesh, shards: list, beta: dict, inv_x: dict, inv2: dict) -> list:
     """D shards of n rows -> D shards of n/2 rows: new shard j folds rows
-    [(j % 2) n/2, (j % 2 + 1) n/2) of old shards j // 2 and j // 2 + D/2;
-    ``inv_x[dev]`` is the round's [N/2, L] table of inverses."""
-    D, h = mesh.size, shards[0].shape[0] // 2
-    out = []
-    for j, dev in enumerate(mesh.devices):
-        rows = slice((j % 2) * h, (j % 2 + 1) * h)
-        fx = copy_to(shards[j // 2][rows], dev)
-        fnegx = copy_to(shards[j // 2 + D // 2][rows], dev)
-        out.append(fold_halves(ctx, fx, fnegx, beta[dev], inv_x[dev][j * h : (j + 1) * h], inv2[dev]))
-    return out
+    [(j % 2) n/2, (j % 2 + 1) n/2) of old shards j // 2 and j // 2 + D/2
+    (one exchange); ``inv_x[dev]`` is the round's [N/2, L] table of inverses."""
+    D, h = mesh.size, shards[mesh.local[0]].shape[0] // 2
+    halves = [slice((j % 2) * h, (j % 2 + 1) * h) for j in range(D)]
+    pairs = exchange(mesh, shards, [[(j // 2, halves[j]), (j // 2 + D // 2, halves[j])] for j in range(D)])
+    return mesh.map(lambda j, dev: fold_halves(ctx, *pairs[j], beta[dev], inv_x[dev][j * h : (j + 1) * h],
+                                               inv2[dev]))
 
 
 def prove(config: FriConfig, codeword, transcript: Transcript, mesh: Mesh) -> FriProof:
@@ -69,11 +66,11 @@ def prove(config: FriConfig, codeword, transcript: Transcript, mesh: Mesh) -> Fr
     for r in range(config.num_rounds):
         tree = (sharded_tree_flat(ctx, mesh, shards) if shards is not None
                 else merkle_tree_flat(field_leaf_bytes(ctx, current)))
-        beta = {}
+        beta, root = {}, replicated(mesh, tree[-1])
         for dev, sponge in sponges.items():
             beta[dev] = torch.empty(ctx.L, dtype=torch.int32, device=dev)
             digest = torch.empty(32, dtype=torch.uint8, device=dev)
-            sponge_step(sponge.state, sponge.buf, sponge.pos, copy_to(tree[-1], dev), digest, beta[dev], ctx)
+            sponge_step(sponge.state, sponge.buf, sponge.pos, root[dev], digest, beta[dev], ctx)
         inv_x = {dev: t[0][:: 1 << r] for dev, t in tables.items()}
         size = N >> r
         if shards is not None and size // 2 >= 2 * D:

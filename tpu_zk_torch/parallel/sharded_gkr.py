@@ -11,8 +11,9 @@ prover, :mod:`tpu_zk_torch.gkr.sparse` (its phase tables, its layer loop
     exact zeros;
   - **segment sums**: each shard sums its gates' terms into int64 lazy limb
     sums over all S buckets (``mont_segment_sum``'s ``index_add_``); each
-    shard's bucket block is the sum of every shard's lazy block, reduced
-    once, so the tables are the one-device tables exactly.  A bucket sums
+    shard's bucket block is the sum of every shard's lazy block
+    (:func:`.mesh.reduce_scatter`), reduced once, so the tables are the
+    one-device tables exactly.  A bucket sums
     at most G terms of 16-bit limbs: exact below 2^47 gates;
   - **the working set** ``[p, k, S, L]`` is interleaved: the low
     ``log2(D)`` index bits are the shard axis (shard d holds rows
@@ -21,12 +22,13 @@ prover, :mod:`tpu_zk_torch.gkr.sparse` (its phase tables, its layer loop
     evaluations (``fused._round_lazy_sums``: p S / 2 terms in all, below
     2^48 a limb up to S = 2^31, as on one device) and reduces them once
     (``lazy_to_mont``); the interpolated coefficients are absorbed on the
-    replicated device sponge, one K7 launch on each distinct device, and
-    each shard folds at its device's challenge;
+    replicated device sponge, one K7 launch on each distinct device of
+    every process, and each shard folds at its device's challenge;
   - **the last log2(D) rounds** of each phase run on the gathered D-row
-    working set on the primary (:func:`fused.fused_gkr_sumcheck_prove`
-    with the primary's sponge); the host transcript is re-synced from it
-    at the end of the phase and seeds the next phase's replicas.
+    working set, gathered on every process's primary
+    (:func:`fused.fused_gkr_sumcheck_prove` with the primary's sponge);
+    each process's host transcript is re-synced from it at the end of the
+    phase and seeds the next phase's replicas.
 
 Layers narrower than 2D rows take the one-device layer sumcheck, as in
 ``tpu_zk``.  The proof (claimed sums, wb/wc evaluations, challenges,
@@ -49,25 +51,25 @@ from ..sumcheck.gkr_sumcheck import SumcheckProverProof
 from ..transcript.device_fs import DeviceSponge, pack_bytes_le
 from ..transcript.fiat_shamir import Transcript
 from ..transcript.kernels import sponge_step
-from .mesh import Mesh, copy_to, cross_shard_sum, gather, replicated
+from .mesh import Mesh, copy_to, cross_shard_sum, gather, reduce_scatter, replicated, scatter
 
 
-def _interleave(mesh: Mesh, table: torch.Tensor) -> list[torch.Tensor]:
+def _interleave(mesh: Mesh, table: torch.Tensor) -> list:
     """[S, L] logical -> D shards [S/D, L]: shard d, row j = logical row j D + d."""
     S, L = table.shape
     t = table.view(S // mesh.size, mesh.size, L)
-    return [copy_to(t[:, d].contiguous(), dev) for d, dev in enumerate(mesh.devices)]
+    return scatter(mesh, lambda d: t[:, d].contiguous())
 
 
-def _pad_gates(mesh: Mesh, layer: Layer) -> list[tuple[torch.Tensor, ...]]:
+def _pad_gates(mesh: Mesh, layer: Layer) -> list:
     """The layer's gates in D blocks of ceil(G/D), each on its shard's device:
     (lefts, rights, outs, is_add [g, 1], valid [g, 1] or None).  The last
     blocks are padded with gate (0, 0, 0, ADD), valid False; the others are
     views of the layer's cached device arrays."""
     G, D = len(layer.lefts), mesh.size
     per = -(-G // D)
-    out = []
-    for k, dev in enumerate(mesh.devices):
+
+    def block(k: int, dev: torch.device):
         lo, hi = min(k * per, G), min((k + 1) * per, G)
         lefts, rights, outs, is_add = (t[lo:hi] for t in layer.on(dev))
         pad = per - (hi - lo)
@@ -77,8 +79,9 @@ def _pad_gates(mesh: Mesh, layer: Layer) -> list[tuple[torch.Tensor, ...]]:
             lefts, rights, outs = (torch.cat([t, zeros]) for t in (lefts, rights, outs))
             is_add = torch.cat([is_add, torch.ones((pad, 1), dtype=torch.bool, device=dev)])
             valid = (torch.arange(per, device=dev) < hi - lo)[:, None]
-        out.append((lefts, rights, outs, is_add, valid))
-    return out
+        return lefts, rights, outs, is_add, valid
+
+    return mesh.map(block)
 
 
 def _mask_rows(x: torch.Tensor, valid: torch.Tensor | None) -> torch.Tensor:
@@ -86,68 +89,74 @@ def _mask_rows(x: torch.Tensor, valid: torch.Tensor | None) -> torch.Tensor:
     return x if valid is None else torch.where(valid, x, 0)
 
 
-def _segment_sums(ctx: FieldCtx, mesh: Mesh, terms: list[torch.Tensor], buckets: list[torch.Tensor],
-                  S: int) -> list[torch.Tensor]:
-    """Each shard's gate terms [g, 2, L] summed into S interleaved buckets
-    (bucket d M + j is logical row j D + d) -> D shards [M, 2, L] of the
-    exact Montgomery sums: shard d gets buckets d M .. d M + M - 1 of every
-    shard's lazy sums, added before one reduction."""
-    D = mesh.size
-    M = S // D
-    acc: list[torch.Tensor | None] = [None] * D
-    for k, dev in enumerate(mesh.devices):
-        lazy = torch.zeros((S,) + terms[k].shape[1:], dtype=torch.int64, device=dev)
-        lazy.index_add_(0, buckets[k], terms[k].to(torch.int64))
-        for d, ddev in enumerate(mesh.devices):
-            part = copy_to(lazy[d * M : (d + 1) * M], ddev)
-            acc[d] = part.clone() if acc[d] is None else acc[d].add_(part)
-        del lazy
-    return [arith.reduce_lazy(ctx, a) for a in acc]
+def _segment_sums(ctx: FieldCtx, mesh: Mesh, terms: list, S: int) -> list:
+    """Each shard's gate terms and interleaved buckets ``terms[k] = ([g, 2,
+    L], [g])`` (bucket d M + j is logical row j D + d) -> D shards [M, 2, L]
+    of the exact Montgomery sums: each shard's int64 lazy sums over all S
+    buckets, one table at a time, reduce-scattered (shard d gets buckets
+    d M .. d M + M - 1 of every shard's table, added before one
+    reduction)."""
+
+    def lazy_tables():
+        for k in mesh.local:
+            vals, buckets = terms[k]
+            lazy = torch.zeros((S,) + vals.shape[1:], dtype=torch.int64, device=mesh.devices[k])
+            lazy.index_add_(0, buckets, vals.to(torch.int64))
+            yield lazy
+            del lazy
+
+    acc = reduce_scatter(mesh, lazy_tables())
+    return mesh.map(lambda d, dev: arith.reduce_lazy(ctx, acc[d]))
 
 
-def _phase1_sharded(ctx: FieldCtx, mesh: Mesh, gates, w_rep: dict, w_int: list[torch.Tensor],
-                    w_out: list[torch.Tensor], S: int) -> list[torch.Tensor]:
+def _phase1_sharded(ctx: FieldCtx, mesh: Mesh, gates: list, w_rep: dict, w_int: list, w_out: list,
+                    S: int) -> list:
     """Phase-1 working sets [2, 2, M, L] on each shard, [[w, A1 + M1], [A2, 1]]
     (``sparse._phase1_tables`` on each shard's gates)."""
     D, M = mesh.size, S // mesh.size
-    terms, buckets = [], []
-    for (lefts, rights, _, is_add, _), wo, dev in zip(gates, w_out, mesh.devices):
+
+    def terms(k: int, dev: torch.device):
+        lefts, rights, _, is_add, _ = gates[k]
+        wo = w_out[k]
         wr = arith.mont_mul(ctx, wo, w_rep[dev][rights])
-        terms.append(torch.stack([torch.where(is_add, wo, wr), torch.where(is_add, wr, 0)], dim=1))
-        buckets.append((lefts % D) * M + lefts // D)
-    tables = _segment_sums(ctx, mesh, terms, buckets, S)
-    return [torch.stack([torch.stack([wi, t[:, 0]]), torch.stack([t[:, 1], ctx.one_mont(dev).expand(M, ctx.L)])])
-            for wi, t, dev in zip(w_int, tables, mesh.devices)]
+        return (torch.stack([torch.where(is_add, wo, wr), torch.where(is_add, wr, 0)], dim=1),
+                (lefts % D) * M + lefts // D)
+
+    tables = _segment_sums(ctx, mesh, mesh.map(terms), S)
+    return mesh.map(lambda k, dev: torch.stack([torch.stack([w_int[k], tables[k][:, 0]]),
+                                                torch.stack([tables[k][:, 1], ctx.one_mont(dev).expand(M, ctx.L)])]))
 
 
-def _phase2_sharded(ctx: FieldCtx, mesh: Mesh, gates, w_int: list[torch.Tensor], w_out: list[torch.Tensor],
-                    b_star: list[int], wb_m: torch.Tensor, S: int) -> list[torch.Tensor]:
+def _phase2_sharded(ctx: FieldCtx, mesh: Mesh, gates: list, w_int: list, w_out: list, b_star: list[int],
+                    wb_m: torch.Tensor, S: int) -> list:
     """Phase-2 working sets [2, 2, M, L], [[A', w(b*) + w], [M' w(b*), w]]
     (``sparse._phase2_tables`` on each shard's gates)."""
     D, M = mesh.size, S // mesh.size
     eq_b = {dev: sparse.eq_table(ctx, b_star, dev) for dev in mesh.distinct}
     wb = replicated(mesh, wb_m)
-    terms, buckets = [], []
-    for (lefts, rights, _, is_add, _), wo, dev in zip(gates, w_out, mesh.devices):
-        w_eq = arith.mont_mul(ctx, wo, eq_b[dev][lefts])
-        terms.append(torch.stack([torch.where(is_add, w_eq, 0), torch.where(is_add, 0, w_eq)], dim=1))
-        buckets.append((rights % D) * M + rights // D)
-    tables = _segment_sums(ctx, mesh, terms, buckets, S)
-    return [torch.stack([torch.stack([t[:, 0], arith.add(ctx, wi, wb[dev])]),
-                         torch.stack([arith.mont_mul(ctx, t[:, 1], wb[dev]), wi])])
-            for wi, t, dev in zip(w_int, tables, mesh.devices)]
+
+    def terms(k: int, dev: torch.device):
+        lefts, rights, _, is_add, _ = gates[k]
+        w_eq = arith.mont_mul(ctx, w_out[k], eq_b[dev][lefts])
+        return (torch.stack([torch.where(is_add, w_eq, 0), torch.where(is_add, 0, w_eq)], dim=1),
+                (rights % D) * M + rights // D)
+
+    tables = _segment_sums(ctx, mesh, mesh.map(terms), S)
+    return mesh.map(lambda k, dev: torch.stack([
+        torch.stack([tables[k][:, 0], arith.add(ctx, w_int[k], wb[dev])]),
+        torch.stack([arith.mont_mul(ctx, tables[k][:, 1], wb[dev]), w_int[k]])]))
 
 
-def _round_sharded(ctx: FieldCtx, mesh: Mesh, stacked: list[torch.Tensor], vinv: torch.Tensor, sponges: dict,
-                   coeffs: torch.Tensor, digest: torch.Tensor, challenge: torch.Tensor) -> list[torch.Tensor]:
+def _round_sharded(ctx: FieldCtx, mesh: Mesh, stacked: list, vinv: torch.Tensor, sponges: dict,
+                   coeffs: torch.Tensor, digest: torch.Tensor, challenge: torch.Tensor) -> list:
     """One round over the interleaved working sets [p, k, M, L]: the shards'
     lazy sums added and reduced once, the coefficients interpolated (into
     ``coeffs`` [k+1, L], plain) and absorbed LE on every replica of the
     sponge (``digest`` and ``challenge`` the primary's), and each shard's
     fold at its device's challenge (K2)."""
-    lazy = cross_shard_sum(mesh, [fused._round_lazy_sums(ctx, st) for st in stacked])
+    lazy = cross_shard_sum(mesh, mesh.map(lambda k, dev: fused._round_lazy_sums(ctx, stacked[k])))
     coeffs.copy_(arith.from_mont(ctx, fused._interpolate_mont(ctx, vinv, arith.lazy_to_mont(ctx, lazy))))
-    data = pack_bytes_le(ctx, coeffs)
+    data = replicated(mesh, pack_bytes_le(ctx, coeffs))
     r = {}
     for dev, sponge in sponges.items():
         if dev == mesh.primary:
@@ -155,19 +164,19 @@ def _round_sharded(ctx: FieldCtx, mesh: Mesh, stacked: list[torch.Tensor], vinv:
         else:
             d = torch.empty(32, dtype=torch.uint8, device=dev)
             r[dev] = torch.empty(ctx.L, dtype=torch.int32, device=dev)
-        sponge_step(sponge.state, sponge.buf, sponge.pos, copy_to(data, dev), d, r[dev], ctx)
-    return [fold(ctx, st, 0, r[dev]) for st, dev in zip(stacked, mesh.devices)]
+        sponge_step(sponge.state, sponge.buf, sponge.pos, data[dev], d, r[dev], ctx)
+    return mesh.map(lambda k, dev: fold(ctx, stacked[k], 0, r[dev]))
 
 
-def _run_phase_rounds(ctx: FieldCtx, mesh: Mesh, stacked: list[torch.Tensor], transcript: Transcript,
+def _run_phase_rounds(ctx: FieldCtx, mesh: Mesh, stacked: list, transcript: Transcript,
                       claimed_sum: int) -> tuple[SumcheckProverProof, torch.Tensor]:
     """All s = log2(S) rounds of one phase: sharded while each shard holds
     two rows or more, then the D rows on the primary.  Returns the phase's
     proof and the working set folded at every challenge ([p, k, 1, L])."""
-    D, M = mesh.size, stacked[0].shape[2]
+    D, (_, k, M, _) = mesh.size, stacked[mesh.local[0]].shape
     n_sharded = M.bit_length() - 1
     n = n_sharded + D.bit_length() - 1
-    width = stacked[0].shape[1] + 1
+    width = k + 1
     vinv = fused._vandermonde_on(ctx.name, width, mesh.primary)
     hasher = transcript._hasher
     sponges = {dev: DeviceSponge.from_host(hasher, dev) for dev in mesh.distinct}
@@ -209,7 +218,7 @@ class ShardedLayerProver(sparse.LayerProver):
         gates = _pad_gates(mesh, layer)
         weights = {dev: sparse._out_weight_table(ctx, layer_index, self.random_challenge_a, self.alpha, self.beta,
                                                  self.rb_values, self.rc_values, dev) for dev in mesh.distinct}
-        w_out = [_mask_rows(weights[dev][outs], valid) for (_, _, outs, _, valid), dev in zip(gates, mesh.devices)]
+        w_out = mesh.map(lambda k, dev: _mask_rows(weights[dev][gates[k][2]], gates[k][4]))
         w_int = _interleave(mesh, w_table)
 
         self.transcript.append(ctx.to_bytes_be(self.claimed_sum))

@@ -3,8 +3,9 @@
 Counterpart of :mod:`tpu_zk.parallel.sharded_merkle`.  A block of N/D
 consecutive leaves is one aligned subtree, so each shard builds its
 subtree's levels (:func:`tpu_zk_torch.merkle.device_merkle.merkle_levels_device`,
-one K5 launch a level) on its own device.  The levels are gathered into one
-flat tree on the primary, laid out as
+one K5 launch a level) on its own device.  The levels are gathered (one
+all_gather a level between processes) into one flat tree on every
+process's primary, laid out as
 :func:`tpu_zk_torch.merkle.device_merkle.merkle_tree_flat` lays it out, and
 the top ``log2(D)`` levels hash from the D subtree roots there (K5).  The
 levels equal :func:`tpu_zk_torch.merkle.device_merkle.merkle_field_tree`'s.
@@ -17,7 +18,7 @@ import torch
 from ..fields.arith import FieldCtx
 from ..merkle.device_merkle import field_leaf_bytes, merkle_field_tree, merkle_levels_device
 from ..merkle.kernels import keccak_rows
-from .mesh import Mesh, shard_leading
+from .mesh import Mesh, gather, shard_leading
 
 
 def shardable(N: int, D: int) -> bool:
@@ -28,14 +29,13 @@ def shardable(N: int, D: int) -> bool:
 def sharded_tree_flat(ctx: FieldCtx, mesh: Mesh, shards: list[torch.Tensor]) -> torch.Tensor:
     """Each shard's [n, L] Montgomery leaves -> the [2 n D - 1, 32] flat tree
     on the primary (the leaf digests, then each level above, the root last)."""
-    D, n = mesh.size, shards[0].shape[0]
-    subtrees = [merkle_levels_device(field_leaf_bytes(ctx, t)) for t in shards]
+    D, n = mesh.size, shards[mesh.local[0]].shape[0]
+    subtrees = mesh.map(lambda k, dev: merkle_levels_device(field_leaf_bytes(ctx, shards[k])))
     flat = torch.empty((2 * n * D - 1, 32), dtype=torch.uint8, device=mesh.primary)
     off = 0
-    for level in range(len(subtrees[0])):  # level i of every subtree, side by side
+    for level in range(n.bit_length()):  # level i of every subtree, side by side
         width = n >> level
-        for k, levels in enumerate(subtrees):
-            flat[off + k * width : off + (k + 1) * width].copy_(levels[level])
+        flat[off : off + width * D] = gather(mesh, [None if t is None else t[level] for t in subtrees])
         off += width * D
     off, width = off - D, D  # the subtree roots: hash the top log2(D) levels from them
     while width > 1:

@@ -3,8 +3,8 @@
 Counterpart of :mod:`tpu_zk.parallel.sharded_msm`.  Points and scalars are
 cut into D blocks of consecutive rows; each shard runs the bucket MSM of
 :mod:`tpu_zk_torch.curves.msm_pippenger` (K4a, K4b) on its block, and the D
-partial points, gathered on the primary, sum in a log-depth tree of complete
-adds (:func:`tpu_zk_torch.curves.ec_device.tree_reduce`).  The group is
+partial points, gathered on every process's primary, sum in a log-depth
+tree of complete adds (:func:`tpu_zk_torch.curves.ec_device.tree_reduce`).  The group is
 associative, so the sum is the one-device MSM's point as a group element.
 """
 
@@ -14,7 +14,7 @@ import torch
 
 from ..curves.ec_device import DeviceCurve, Point, ec_identity, tree_reduce
 from ..curves.msm_pippenger import msm_pippenger
-from .mesh import Mesh, copy_to, gather, shard_leading
+from .mesh import Mesh, gather, replicated, shard_leading
 
 
 def sharded_msm_points(dc: DeviceCurve, mesh: Mesh, points: Point, scalar_limbs_plain: torch.Tensor) -> Point:
@@ -33,12 +33,11 @@ def sharded_msm_points(dc: DeviceCurve, mesh: Mesh, points: Point, scalar_limbs_
         scalar_limbs_plain = torch.cat([scalar_limbs_plain, scalar_limbs_plain.new_zeros((pad, scalar_limbs_plain.shape[1]))])
     coords = [shard_leading(mesh, c) for c in points]
     scalars = shard_leading(mesh, scalar_limbs_plain)
-    partials = []
-    for k, dev in enumerate(mesh.devices):
-        local = tuple(coords[j][k] for j in range(3))
-        partials.append(torch.stack(msm_pippenger(ctx, copy_to(dc.b3, dev), (local, scalars[k]))))
-    stacked = gather(mesh, [p[None] for p in partials])  # [D, 3, L]
-    return tree_reduce(ctx, copy_to(dc.b3, mesh.primary), stacked.unbind(1))
+    b3 = replicated(mesh, dc.b3)
+    partials = mesh.map(lambda k, dev: torch.stack(msm_pippenger(ctx, b3[dev], (tuple(c[k] for c in coords),
+                                                                                  scalars[k])))[None])
+    stacked = gather(mesh, partials)  # [D, 3, L] in every process
+    return tree_reduce(ctx, b3[mesh.primary], stacked.unbind(1))
 
 
 def sharded_msm(dc: DeviceCurve, mesh: Mesh, affine_points, scalars) -> tuple[int, int] | None:

@@ -26,7 +26,7 @@ import torch
 
 from ..ntt import kernels
 from ..ntt.sixstep import SixStepPlan, _bit_reverse
-from .mesh import Mesh, all_to_all, copy_to, gather, replicated
+from .mesh import Mesh, all_shards, all_to_all, copy_to, replicated, scatter
 
 
 class ShardedSixStep:
@@ -46,13 +46,13 @@ class ShardedSixStep:
         for i in range(1, R - 1):  # sliced along n_{R-1}, the fastest axis of C_i
             A, m, C = math.prod(ms[:i]), ms[i], math.prod(ms[i + 1 :])
             pre = plan.pres[i].view(A, m, C // m_last, m_last, L)
-            self.pres.append([copy_to(pre[..., s * mb : (s + 1) * mb, :].contiguous(), dev).view(A, m, C // D, L)
-                              for s, dev in enumerate(mesh.devices)])
+            self.pres.append(scatter(mesh, lambda s: pre[..., s * mb : (s + 1) * mb, :].contiguous()
+                                     .view(A, m, C // D, L)))
         A = plan.N // m_last
         last = plan.pres[R - 1].view(D, A // D, m_last, 1, L)  # sliced along the first axis
-        self.last_pre = [copy_to(last[s].contiguous(), dev) for s, dev in enumerate(mesh.devices)]
+        self.last_pre = scatter(mesh, lambda s: last[s])
         rows = plan.dst.view(D, plan.N // D) // D
-        self.last_dst = [copy_to(rows[s].contiguous(), dev) for s, dev in enumerate(mesh.devices)]
+        self.last_dst = scatter(mesh, lambda s: rows[s])
         self.scale = None if plan.scale is None else replicated(mesh, plan.scale)
         rev = _bit_reverse(D.bit_length() - 1)
         self.shard_of_residue = [int(rev[c]) for c in range(D)]  # the shard holding outputs k = c mod D
@@ -68,24 +68,21 @@ class ShardedSixStep:
         R, m_last = len(ms), ms[-1]
         mb = m_last // D
         x = table.view(plan.N // m_last, m_last, L)
-        shards = [copy_to(x[:, s * mb : (s + 1) * mb].contiguous(), dev) for s, dev in enumerate(mesh.devices)]
+        shards = scatter(mesh, lambda s: x[:, s * mb : (s + 1) * mb].contiguous())
         for i in range(R - 1):
             A, m, C = math.prod(ms[:i]), ms[i], math.prod(ms[i + 1 :]) // D
-            shards = [
-                kernels.dif_pass(ctx, t.view(A, m, C, L), self.tws[i][dev],
-                                 None if self.pres[i] is None else self.pres[i][s]).view(-1, mb, L)
-                for s, (t, dev) in enumerate(zip(shards, mesh.devices))
-            ]
+            shards = mesh.map(lambda s, dev: kernels.dif_pass(
+                ctx, shards[s].view(A, m, C, L), self.tws[i][dev],
+                None if self.pres[i] is None else self.pres[i][s]).view(-1, mb, L))
         # the digit turn: shard the first axis, make n_{R-1} local
         shards = all_to_all(mesh, shards, split_dim=0, concat_dim=1)
         A = plan.N // m_last // D
-        shards = [
-            kernels.dif_pass(ctx, t.view(A, m_last, 1, L), self.tws[R - 1][dev], self.last_pre[s],
-                             None if self.scale is None else self.scale[dev], self.last_dst[s]).view(-1, L)
-            for s, (t, dev) in enumerate(zip(shards, mesh.devices))
-        ]
+        shards = mesh.map(lambda s, dev: kernels.dif_pass(
+            ctx, shards[s].view(A, m_last, 1, L), self.tws[R - 1][dev], self.last_pre[s],
+            None if self.scale is None else self.scale[dev], self.last_dst[s]).view(-1, 1, L))
         # the exit gather: output k = j D + c lies at row j of the shard of residue c
-        return gather(mesh, [shards[s][:, None] for s in self.shard_of_residue], dim=1).view(plan.N, L)
+        every = all_shards(mesh, shards)
+        return torch.cat([every[s] for s in self.shard_of_residue], dim=1).view(plan.N, L)
 
 
 def sharded_sixstep(plan: SixStepPlan, table: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -20,36 +20,37 @@ from ..fields.arith import FieldCtx, reduce_lazy
 from ..poly.multilinear import MultilinearPolynomial, fold, fold_and_lazy_half_sums, sum_halves
 from ..sumcheck.basic import SumcheckProof, host_round
 from ..transcript.fiat_shamir import Transcript
-from .mesh import Mesh, copy_to, cross_shard_sum, gather, replicated
+from .mesh import Mesh, cross_shard_sum, gather, replicated, scatter
 
 
-def _sharded_half_sums(ctx: FieldCtx, mesh: Mesh, shards: list[torch.Tensor]) -> torch.Tensor:
+def _sharded_half_sums(ctx: FieldCtx, mesh: Mesh, shards: list) -> torch.Tensor:
     """Shards [M, L] -> [2, L] Montgomery on the primary: per-shard half
     sums, then one exact cross-shard sum."""
-    lazy = [t.view(2, t.shape[0] // 2, ctx.L).sum(dim=1, dtype=torch.int64) for t in shards]
+    lazy = mesh.map(lambda i, dev: shards[i].view(2, shards[i].shape[0] // 2, ctx.L).sum(dim=1, dtype=torch.int64))
     return reduce_lazy(ctx, cross_shard_sum(mesh, lazy))
 
 
-def _sharded_fold(ctx: FieldCtx, mesh: Mesh, shards: list[torch.Tensor], r: dict) -> list[torch.Tensor]:
+def _sharded_fold(ctx: FieldCtx, mesh: Mesh, shards: list, r: dict) -> list:
     """Shards [M, L] -> [M/2, L]: fold the top logical variable at ``r``
     (replicated Montgomery [L]), shard-local (K2 on each shard)."""
-    return [fold(ctx, t, 0, r[dev]) for t, dev in zip(shards, mesh.devices)]
+    return mesh.map(lambda i, dev: fold(ctx, shards[i], 0, r[dev]))
 
 
-def _sharded_fold_and_half_sums(ctx: FieldCtx, mesh: Mesh, shards: list[torch.Tensor], r: dict):
+def _sharded_fold_and_half_sums(ctx: FieldCtx, mesh: Mesh, shards: list, r: dict):
     """One round on shards of M >= 4 rows: each shard's fold and lazy half
     sums (one K2 launch), then one cross-shard sum of the lazy sums."""
-    out = [fold_and_lazy_half_sums(ctx, t, r[dev]) for t, dev in zip(shards, mesh.devices)]
-    return [f for f, _ in out], reduce_lazy(ctx, cross_shard_sum(mesh, [lazy for _, lazy in out]))
+    out = mesh.map(lambda i, dev: fold_and_lazy_half_sums(ctx, shards[i], r[dev]))
+    folded = [None if o is None else o[0] for o in out]
+    return folded, reduce_lazy(ctx, cross_shard_sum(mesh, [None if o is None else o[1] for o in out]))
 
 
-def to_sharded_layout(ctx: FieldCtx, table: torch.Tensor, mesh: Mesh) -> list[torch.Tensor]:
+def to_sharded_layout(ctx: FieldCtx, table: torch.Tensor, mesh: Mesh) -> list:
     """[N, L] logical table -> D shards [N/D, L]; shard d holds rows j*D + d."""
     D, N = mesh.size, table.shape[0]
     if N % D or N < 2 * D:
         raise ValueError(f"sharded sumcheck: a table of {N} rows does not split over {D} shards (needs N >= 2D)")
     t = table.reshape(N // D, D, ctx.L).transpose(0, 1)
-    return [copy_to(t[d].contiguous(), dev) for d, dev in enumerate(mesh.devices)]
+    return scatter(mesh, lambda d: t[d].contiguous())
 
 
 class ShardedProver:
@@ -85,7 +86,7 @@ class ShardedProver:
             if rnd == n - 1:
                 break
             r = replicated(mesh, ctx.scalar(challenge, device=mesh.primary))
-            if shards[0].shape[0] >= 4:
+            if shards[mesh.local[0]].shape[0] >= 4:
                 shards, univ_m = _sharded_fold_and_half_sums(ctx, mesh, shards, r)
             else:  # one row a shard after this fold: shard d is logical row d
                 table = gather(mesh, _sharded_fold(ctx, mesh, shards, r))

@@ -71,6 +71,20 @@ def sum_halves(ctx: FieldCtx, table: torch.Tensor) -> torch.Tensor:
     return arith.sum_mod(ctx, table.reshape(2, N // 2, ctx.L), axis=1)
 
 
+def round0_univariate(ctx: FieldCtx, table: torch.Tensor) -> torch.Tensor:
+    """The first sumcheck round's univariate: [N, L] -> the half sums [2, L]
+    in plain form."""
+    return arith.from_mont(ctx, sum_halves(ctx, table))
+
+
+def fused_round(ctx: FieldCtx, table: torch.Tensor, r: torch.Tensor):
+    """One sumcheck round: fold variable 0 at the Montgomery challenge ``r``
+    and sum the folded table's halves -> (the next univariate [2, L] in
+    plain form, the folded table [N/2, L]); one K2 launch."""
+    folded, univ_m = fold_and_half_sums(ctx, table, r)
+    return arith.from_mont(ctx, univ_m), folded
+
+
 def fold_chain(ctx: FieldCtx, table: torch.Tensor, rs: torch.Tensor) -> torch.Tensor:
     """Fold variable 0 at each point of ``rs [k, L]`` in turn."""
     for i in range(rs.shape[0]):
