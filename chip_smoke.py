@@ -36,7 +36,12 @@ Phases, in order; any failure raises and the exit code is nonzero:
    and K2 must launch, K7 once a round; ``prove(fused=False)`` gives the same
    proof and transcript; a warm fused prove's round loop runs under
    ``torch.cuda.set_sync_debug_mode("error")``; each path's host syncs
-   (the debug mode's warnings, by the place that synced) and times;
+   (the debug mode's warnings, by the place that synced) and times; at
+   2^24 a warm fused prove with K7's round form and one with each round
+   made of from_mont, the pack and K7's byte form give the same proof, K7
+   once a round in each, and K1 exactly one launch fewer a round with the
+   round form (:func:`round_form_against_byte_form`, also in phases 9, 16,
+   22 and 24), both timed;
 9. the GKR main path over BN254 Fr, ``tree_sum_circuit`` of depth 24
    (2^24 random inputs, 2^24 - 1 gates), then depth 20: ``Circuit.evaluate``,
    ``sparse.prove`` and ``sparse.verify``, first call and warm; the output
@@ -44,7 +49,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
    tampered round coefficient must fail; K1, K2 and K3 must launch, K7 once
    a round; a ``fused=False`` prove gives the same JSON; the warm fused
    prove's sumcheck phases run under the "error" sync debug mode; each
-   path's host syncs, by place, and times;
+   path's host syncs, by place, and times; at depth 24 K7's round form
+   against its byte form, as in phase 8;
 10. each kernel's time beside its plain version's, at the sumcheck's 2^24
    shapes and at a depth-24 GKR round's (K3 on 2^25 elements, K1 on 2^24
    pairs, K2 at B = 4, T = 2^23), each output bit-exact against the plain
@@ -73,7 +79,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
    JSON and back, ``verify_succinct``, first call and warm, then under the
    stage timers; K1-K4 must launch, K7 once a round, and no double-and-add
    MSM run; tampered proofs fail; a ``fused=False`` prove gives the same JSON;
-   each path's host syncs and times;
+   each path's host syncs and times; K7's round form against its byte
+   form, as in phase 8;
 17. K6 (NTT pass) against its plain version, bit-exact, both Fr fields, at
    every radix the plans use and small ones, the plans' last passes (C = 1),
    with and without pre-twiddle, scale and natural-order store, ragged column
@@ -106,7 +113,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
    ``Circuit.evaluate``, ``protocol.prove`` and ``protocol.verify``, first
    call and warm, then under ``gkr/breakdown.py``'s dense stage timers; a
    host-synced prove (the GKR sumcheck with ``fused=False``) of the same
-   JSON, each path's host syncs and times; K7 once a round; the
+   JSON, each path's host syncs and times; K7 once a round, and its round
+   form against its byte form as in phase 8; the
    output must equal the host's sum, the proof JSON ``sparse.prove``'s, a
    tampered wb evaluation and round coefficient must fail, K1-K3 must
    launch; the depth-9 tree of alternating ADD/MUL gates, its JSON equal
@@ -116,11 +124,19 @@ Phases, in order; any failure raises and the exit code is nonzero:
    K4b launching and no double-and-add MSM; the interactive sumcheck over
    2^20 entries, every round accepted, the oracle check true, a tampered
    claim rejected;
-23. K7 (the device sponge) against its plain version, bit-exact, over 10^4
-   random steps chained on one sponge (k <= 300 bytes, a squeeze with its
-   challenge or none, from ``--seed``), every step's state, tail, fill
-   level, digest and challenge; ``digest_to_mont`` of 2^256 - 1 and p; K7's
-   time a launch beside its plain version's and its bound; the 2^24 basic
+23. K7 (the device sponge) against its plain versions, bit-exact: its byte
+   form over 10^4 random steps chained on one sponge (k <= 300 bytes, a
+   squeeze with its challenge or none, from ``--seed``), every step's
+   state, tail, fill level, digest and challenge; its round form over 1,536
+   rounds chained on one sponge (2 Montgomery elements big-endian, 3 or 4
+   little-endian, random below p, each round after a byte-form step that
+   brings it to fill level i % 136, so rounds start at every level), every
+   round's state, tail, fill level, plain slot, digest and challenge;
+   ``digest_to_mont`` of 2^256 - 1 and p; both forms' time a launch,
+   through the wrapper and with the ctypes arguments made once, at a basic
+   round (64 bytes) and a GKR round (96 bytes), beside their plain
+   versions', the round made as before the round form, the bound and the
+   empty launch; the 2^24 basic
    sumcheck checkpointed after round 12 and the depth-20 sparse GKR after
    layer 10, loaded and finished to the uninterrupted proofs; the field
    counters over one 2^20 prove; ``roofline.render_markdown`` over phase 10's
@@ -131,7 +147,8 @@ Phases, in order; any failure raises and the exit code is nonzero:
    19 and 20 keep their 2^24 inputs on the host for it): the basic
    sumcheck at 2^24 (K2 on every shard each round down to one row a shard),
    GKR on ``tree_sum_circuit(24)`` (K7 once a round, K2 on every shard each
-   sharded round), the MSM of 2^24 points and of 2^24 - 3 (K4a's passes and
+   sharded round; K7's round form against its byte form, as in phase 8),
+   the MSM of 2^24 points and of 2^24 - 3 (K4a's passes and
    K4b on every shard), the NTT at 2^24 (K6 once a pass on every shard),
    the Merkle tree of the 2^24 FRI codeword (K5 a level on every shard, then
    the top two levels) and FRI at 2^24, blowup 4 (K7 once a round); each
@@ -437,7 +454,67 @@ def _wrappers() -> dict:
     return {"mont_mul": kernels.mont_mul, "fold": kernels.fold, "addsub": kernels.addsub,
             "msm_buckets": curve_kernels.msm_buckets, "msm_bucket_reduce": curve_kernels.msm_bucket_reduce,
             "keccak_rows": merkle_kernels.keccak_rows, "dif_pass": ntt_kernels.dif_pass,
-            "sponge_step": transcript_kernels.sponge_step}
+            "sponge_step": transcript_kernels.sponge_step, "sponge_round": transcript_kernels.sponge_round}
+
+
+def k7_launches(launches: dict) -> int:
+    """K7's launches in either form (both launch csrc/sponge.cu's one kernel)."""
+    return launches["sponge_step"] + launches["sponge_round"]
+
+
+@contextlib.contextmanager
+def byte_form_rounds():
+    """While the block runs, each fused round's transcript step is made as it
+    was before K7's round form: from_mont (K1) into the round's slot, the
+    byte pack and K7's byte form, in the fused provers and in the sharded
+    GKR prover."""
+    from tpu_zk_torch.fields import arith
+    from tpu_zk_torch.parallel import sharded_gkr
+    from tpu_zk_torch.sumcheck import fused
+    from tpu_zk_torch.transcript import kernels as tk
+
+    def step(state, buf, pos, mont, slot, digest, challenge, ctx, big_endian):
+        slot.copy_(arith.from_mont(ctx, mont))
+        tk.sponge_step(state, buf, pos, (tk.pack_bytes_be if big_endian else tk.pack_bytes_le)(ctx, slot), digest,
+                       challenge, ctx)
+
+    saved = fused.sponge_round, sharded_gkr.sponge_round
+    fused.sponge_round = sharded_gkr.sponge_round = step
+    try:
+        yield
+    finally:
+        fused.sponge_round, sharded_gkr.sponge_round = saved
+
+
+def round_form_against_byte_form(what: str, prove, rounds: int, same) -> dict:
+    """A warm fused prove as it runs (K7's round form), then one with the
+    byte form's rounds (:func:`byte_form_rounds`): the same proof
+    (``same(a, b)``); K7 once a round in each, all in the round form in the
+    first and all in the byte form in the second; K1 exactly one launch
+    fewer a round in the first.  Both proves' K1 launches and times."""
+    reset_launches()
+    got, t_round = sync_time(prove)
+    by_round = read_launches()
+    with byte_form_rounds():
+        reset_launches()
+        old, t_byte = sync_time(prove)
+        by_byte = read_launches()
+    if not same(got, old):
+        raise AssertionError(f"{what}: the proofs with K7's round form and with its byte form differ")
+    del got, old
+    if (by_round["sponge_round"], by_round["sponge_step"], by_byte["sponge_round"], by_byte["sponge_step"]) != (
+            rounds, 0, 0, rounds):
+        raise AssertionError(f"{what}: K7 launched {by_round['sponge_round']} + {by_round['sponge_step']} times "
+                             f"(round + byte form), then {by_byte['sponge_round']} + {by_byte['sponge_step']} with "
+                             f"the byte form's rounds; {rounds} rounds")
+    if by_byte["mont_mul"] - by_round["mont_mul"] != rounds:
+        raise AssertionError(f"{what}: K1 launched {by_round['mont_mul']} times with K7's round form and "
+                             f"{by_byte['mont_mul']} with its byte form, not one fewer a round ({rounds})")
+    out = {"rounds": rounds, "k7_launches": by_round["sponge_round"], "k1_launches": by_round["mont_mul"],
+           "k1_launches_byte_form": by_byte["mont_mul"], "k3_launches": by_round["addsub"], "prove_s": t_round,
+           "prove_byte_form_s": t_byte}
+    log(f"{what}, K7's round form against its byte form: " + json.dumps(out))
+    return out
 
 
 def reset_launches() -> None:
@@ -494,7 +571,7 @@ def main_path(device, rng, log_n: int) -> dict:
     poly, t_mont = sync_time(lambda: MultilinearPolynomial(ctx, arith.to_mont(ctx, plain)))
     prover = Prover(poly)
     proof, t_prove = sync_time(prover.prove)
-    k7_prove = read_launches()["sponge_step"]
+    k7_prove = k7_launches(read_launches())
     ok, t_verify = sync_time(lambda: Verifier.init().verify(proof))
     launches = read_launches()
 
@@ -529,6 +606,8 @@ def main_path(device, rng, log_n: int) -> dict:
     _, t_host_warm = sync_time(lambda: Prover(poly).prove(fused=False))
     (_, syncs_fused), t_fused_counted = sync_time(lambda: count_syncs(lambda: Prover(poly).prove()))
     (_, syncs_host), t_host_counted = sync_time(lambda: count_syncs(lambda: Prover(poly).prove(fused=False)))
+    round_form = (round_form_against_byte_form(f"basic sumcheck 2^{log_n}", lambda: Prover(poly).prove(), log_n,
+                                               same_sumcheck_proofs) if log_n == MAIN_LOG_N else None)
     if log_n == MAIN_LOG_N:  # phase 24's one-device reference, on the host
         ONE_DEVICE["sumcheck"] = {"table": poly.table.cpu(), "claimed": proof.initial_claimed_sum,
                                   "univariates": [u.to_ints() for u in proof.round_univariate_polynomials],
@@ -540,6 +619,7 @@ def main_path(device, rng, log_n: int) -> dict:
         "host_synced_prove_warm_s": t_host_warm, "warm_round_loop_ran_under_sync_error_mode": True,
         **sync_report(syncs_fused, syncs_host),
         "prove_counting_syncs_s": {"fused": t_fused_counted, "host_synced": t_host_counted},
+        "round_form": round_form,
     }
     log(f"main path 2^{log_n} bn254_fr: " + json.dumps(out))
     return out
@@ -577,8 +657,8 @@ def gkr_main_path(device, rng, depth: int) -> dict:
     for name in ("mont_mul", "fold", "addsub"):  # plain GKR runs no MSM
         if launches[name] == 0:
             raise AssertionError(f"GKR main path at depth {depth} never launched kernel {name}")
-    if launches["sponge_step"] != depth * (depth + 1):  # one a round: layer i's two phases of i + 1 rounds
-        raise AssertionError(f"GKR depth {depth}: K7 launched {launches['sponge_step']} times, not once a round")
+    if k7_launches(launches) != depth * (depth + 1):  # one a round: layer i's two phases of i + 1 rounds
+        raise AssertionError(f"GKR depth {depth}: K7 launched {k7_launches(launches)} times, not once a round")
     del ev
     proof.wb_evaluations[0] += 1
     if sparse.verify(circuit, proof, table):
@@ -598,6 +678,10 @@ def gkr_main_path(device, rng, depth: int) -> dict:
     (host_proof, syncs_host), t_host = sync_time(lambda: count_syncs(lambda: sparse.prove(circuit, table, fused=False)))
     if gkr_proof_to_json(host_proof, ctx.name) != gkr_proof_to_json(warm_proof, ctx.name):
         raise AssertionError(f"GKR depth {depth}: the fused and host-synced proofs differ")
+    round_form = (round_form_against_byte_form(
+        f"GKR depth {depth}", lambda: sparse.prove(circuit, table), depth * (depth + 1),
+        lambda a, b: gkr_proof_to_json(a, ctx.name) == gkr_proof_to_json(b, ctx.name)) if depth == max(GKR_DEPTHS)
+        else None)
     if depth == max(GKR_DEPTHS):  # phase 24's one-device reference, on the host
         ONE_DEVICE["gkr"] = {"inputs": table.cpu(), "json": gkr_proof_to_json(warm_proof, ctx.name),
                              "warm_s": t_prove_warm, "host_synced_s": t_host}
@@ -607,7 +691,7 @@ def gkr_main_path(device, rng, depth: int) -> dict:
         "prove_warm_s": t_prove_warm, "verify_warm_s": t_verify_warm,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
         "host_synced_prove_s": t_host, "warm_phases_ran_under_sync_error_mode": True,
-        **sync_report(syncs_fused, syncs_host),
+        **sync_report(syncs_fused, syncs_host), "round_form": round_form,
     }
     log(f"GKR main path depth {depth} bn254_fr: " + json.dumps(out))
     return out
@@ -1207,8 +1291,8 @@ def succinct_main_path(device, rng, setup, setup_times: dict) -> dict:
         if sparse.verify_succinct(circuit, tampered, setup):
             raise AssertionError(f"succinct GKR depth {depth}: a proof with a tampered {what} verifies")
 
-    if launches["sponge_step"] != depth * (depth + 1):
-        raise AssertionError(f"succinct GKR depth {depth}: K7 launched {launches['sponge_step']} times, not once a round")
+    if k7_launches(launches) != depth * (depth + 1):
+        raise AssertionError(f"succinct GKR depth {depth}: K7 launched {k7_launches(launches)} times, not once a round")
 
     (warm, syncs_fused), t_prove_warm = sync_time(lambda: count_syncs(lambda: sparse.prove_succinct(circuit, table, setup)))
     ok, t_verify_warm = sync_time(lambda: sparse.verify_succinct(circuit, warm, setup))
@@ -1221,6 +1305,10 @@ def succinct_main_path(device, rng, setup, setup_times: dict) -> dict:
     if succinct_proof_to_json(host, ctx.name) != proof_json:
         raise AssertionError(f"succinct GKR depth {depth}: the fused and host-synced proofs differ")
     del host
+    round_form = (round_form_against_byte_form(
+        f"succinct GKR depth {depth}", lambda: sparse.prove_succinct(circuit, table, setup), depth * (depth + 1),
+        lambda a, b: succinct_proof_to_json(a, ctx.name) == succinct_proof_to_json(b, ctx.name))
+        if depth == SUCCINCT_DEPTH else None)
     (_, prove_stages, prove_calls, prove_each), t_prove_timers = sync_time(
         lambda: breakdown.staged(lambda: sparse.prove_succinct(circuit, table, setup), device, breakdown.SUCCINCT_STAGES))
     (_, verify_stages, _, _), t_verify_timers = sync_time(
@@ -1231,6 +1319,7 @@ def succinct_main_path(device, rng, setup, setup_times: dict) -> dict:
         "proof_json_bytes": len(proof_json), "verify_first_s": t_verify, "prove_warm_s": t_prove_warm,
         "verify_warm_s": t_verify_warm, "peak_mem_gib": peak, "launches": launches,
         "host_synced_prove_s": t_host, **sync_report(syncs_fused, syncs_host),
+        "round_form": round_form,
         "prove_with_timers_s": t_prove_timers, "prove_whole_s": breakdown.whole_s(prove_each), "prove_stages_s": prove_stages,
         "prove_stage_calls": prove_calls,
         "verify_with_timers_s": t_verify_timers, "verify_stages_s": verify_stages,
@@ -1301,9 +1390,11 @@ def kernels_line(times: dict, launches: dict, k4_small: dict, k4_main: dict, k56
     MSM's shape (K4a: its bucket passes added up, its plain version run
     PLAIN_CHUNK_UNITS units at a time, one call cannot hold its slots);
     both kernels' times at 2^12 points beside them.  K5, K6: time per launch over one 2^24-leaf tree and
-    one 2^24 forward transform.  K7: time per launch of a GKR round's sponge step, a basic round's beside
-    it, its plain version on the CPU, its bound without and with the launch probe's time.  ``launches`` is the depth-24 succinct
-    path's count for K1-K4 and the 2^24 NTT -> FRI path's for K5 and K6;
+    one 2^24 forward transform.  K7, a row a form (one kernel, two entry points): time per launch at a GKR
+    round's step through the wrapper, with its arguments made once beside it, a basic round's beside them,
+    its plain version on the CPU, its bound without and with the launch probe's time.  ``launches`` is the depth-24 succinct path's count for K1-K4 and K7's round form,
+    phase 24's sharded FRI's for K7's byte form (which the fused rounds no longer launch), and the 2^24
+    NTT -> FRI path's for K5 and K6;
     every path's count is beside it, phase 22's dense, dense succinct and
     interactive paths among them.  No PyTorch call computes any of these
     functions, so ``library_ms`` is null."""
@@ -1362,16 +1453,31 @@ def kernels_line(times: dict, launches: dict, k4_small: dict, k4_main: dict, k56
                      "launches": launches["fri"][name], "launches_by_path": {p: n[name] for p, n in launches.items()},
                      "library_ms": None, **row})
     gkr_round = k7["GKR round"]
-    rows.append({"name": "sponge_step", "route": "cuda", "source": "tpu_zk_torch/csrc/sponge.cu",
+    k7_common = {"route": "cuda", "source": "tpu_zk_torch/csrc/sponge.cu", "bound_ms": gkr_round["bound_ms"],
+                 "bound_by": gkr_round["bound_by"], "library_ms": None, "launch_ms": gkr_round["launch_ms"],
+                 "bound_with_launch_ms": gkr_round["bound_with_launch_ms"],
+                 "plain_is": "the plain version on the CPU (its tensors' device)"}
+    rows.append({"name": "sponge_step", **k7_common,
                  "replaces": "tpu_zk/transcript/device_fs.py:79, tpu_zk/transcript/device_fs.py:314, "
                              "tpu_zk/transcript/device_fs.py:341, tpu_zk/transcript/device_fs.py:356",
-                 "launches": launches["succinct"]["sponge_step"],
+                 "launches": launches["sharded_fri"]["sponge_step"], "launches_from": "sharded_fri",
                  "launches_by_path": {p: n["sponge_step"] for p, n in launches.items()},
                  "max_abs_err": k7["max_abs_err"], "ms": gkr_round["ms"], "plain_ms": gkr_round["plain_ms"],
-                 "bound_ms": gkr_round["bound_ms"], "bound_by": gkr_round["bound_by"], "library_ms": None,
-                 "shape": "one GKR round's step: 96 bytes, a squeeze and its challenge",
-                 "launch_ms": gkr_round["launch_ms"], "bound_with_launch_ms": gkr_round["bound_with_launch_ms"],
-                 "basic_round": k7["basic round"], "plain_is": "the plain version on the CPU (its tensors' device)"})
+                 "raw_launch_ms": gkr_round["raw_launch_ms"],
+                 "shape": "the byte form at a GKR round's step: 96 bytes, a squeeze and its challenge",
+                 "basic_round": {k: v for k, v in k7["basic round"].items() if not k.startswith("round_form")}})
+    rows.append({"name": "sponge_round", **k7_common,
+                 "replaces": "tpu_zk/sumcheck/fused.py (a fused round's from_mont, pack, absorb_dyn, squeeze_dyn "
+                             "and digest_to_mont), tpu_zk/transcript/device_fs.py:79, "
+                             "tpu_zk/transcript/device_fs.py:314, tpu_zk/transcript/device_fs.py:341",
+                 "launches": launches["succinct"]["sponge_round"],
+                 "launches_by_path": {p: n["sponge_round"] for p, n in launches.items()},
+                 "max_abs_err": k7["round_chain"]["max_abs_err"], "ms": gkr_round["round_form_ms"],
+                 "plain_ms": gkr_round["round_form_plain_ms"], "raw_launch_ms": gkr_round["round_form_raw_launch_ms"],
+                 "byte_form_round_ms": gkr_round["byte_form_round_ms"],
+                 "shape": "one GKR round: 3 Montgomery elements, 96 bytes LE, a squeeze and its challenge",
+                 "basic_round": {k: v for k, v in k7["basic round"].items()
+                                 if k.startswith("round_form") or k.startswith("bound") or k == "byte_form_round_ms"}})
     return rows
 
 
@@ -1924,8 +2030,8 @@ def dense_path(device, rng, seed: int) -> dict:
         raise AssertionError(f"dense GKR depth {depth} proof with a tampered round coefficient verifies")
 
     rounds = sum(len(p.round_univariate_polynomials) for p in proof.sumcheck_proofs)
-    if launches["sponge_step"] != rounds:
-        raise AssertionError(f"dense GKR depth {depth}: K7 launched {launches['sponge_step']} times in {rounds} rounds")
+    if k7_launches(launches) != rounds:
+        raise AssertionError(f"dense GKR depth {depth}: K7 launched {k7_launches(launches)} times in {rounds} rounds")
 
     _, t_eval_warm = sync_time(lambda: circuit.evaluate(table))
     (warm, syncs_fused), t_prove_warm = sync_time(lambda: count_syncs(lambda: protocol.prove(circuit, table)))
@@ -1936,6 +2042,8 @@ def dense_path(device, rng, seed: int) -> dict:
         (host, syncs_host), t_host = sync_time(lambda: count_syncs(lambda: protocol.prove(circuit, table)))
     if gkr_proof_to_json(host, ctx.name) != dense_json:
         raise AssertionError(f"dense GKR depth {depth}: the fused and host-synced proofs differ")
+    round_form = round_form_against_byte_form(f"dense GKR depth {depth}", lambda: protocol.prove(circuit, table),
+                                              rounds, lambda a, b: gkr_proof_to_json(a, ctx.name) == gkr_proof_to_json(b, ctx.name))
     (_, prove_stages, prove_calls, _), t_prove_timers = sync_time(
         lambda: breakdown.staged(lambda: protocol.prove(circuit, table), device, breakdown.DENSE_STAGES))
     (ok, verify_stages, verify_calls, _), t_verify_timers = sync_time(
@@ -1988,7 +2096,7 @@ def dense_path(device, rng, seed: int) -> dict:
         "host_synced_prove_s": t_host, **sync_report(syncs_fused, syncs_host),
         "proof_json_bytes": len(dense_json), "prove_with_timers_s": t_prove_timers, "prove_stages_s": prove_stages,
         "prove_stage_calls": prove_calls, "verify_with_timers_s": t_verify_timers, "verify_stages_s": verify_stages,
-        "verify_stage_calls": verify_calls,
+        "verify_stage_calls": verify_calls, "round_form": round_form,
         "succinct": {"prove_first_s": t_s_prove, "verify_first_s": t_s_verify, "prove_warm_s": t_s_prove_warm,
                      "verify_warm_s": t_s_verify_warm, "launches": s_launches},
     }
@@ -2043,48 +2151,112 @@ def interactive_path(device, rng) -> dict:
 # phase 23: K7 (the device sponge), checkpoints, counters, the roofline table
 # ---------------------------------------------------------------------------
 
-K7_STEPS = 10_000  # random steps chained on one sponge, K7 against its plain version
+K7_STEPS = 10_000  # random steps chained on one sponge, K7's byte form against its plain version
 K7_MAX_DATA = 300  # data bytes a step, at most
+K7_ROUNDS = 1_536  # rounds chained on one sponge, K7's round form against its plain version
+K7_ROUND_FORMS = ((2, True), (3, False), (4, False))  # (elements, big-endian): a basic round's, GKR rounds'
 K7_TIMED = 1000  # launches a timed K7 step
 CHECKPOINT_ROUND = 12  # the 2^24 basic sumcheck is saved after this round
 CHECKPOINT_DEPTH, CHECKPOINT_LAYER = 20, 10  # the sparse GKR prove saved after this layer
 COUNTERS_LOG_N = 20
 
 
-def k7_raw_ms(ctx, sponge, data, digest, chal) -> float:
-    """K7's time a launch with its ctypes arguments made once, launched
-    K7_TIMED times in a row: the kernel without the wrapper's Python."""
+def k7_raw_ms(entry: str, *args) -> float:
+    """K7's time a launch through the C entry point ``entry`` with its ctypes
+    arguments made once, launched K7_TIMED times in a row: the kernel
+    without the wrapper's Python."""
     import ctypes
 
     from tpu_zk_torch import _build
-    from tpu_zk_torch.fields.kernels import _launch_args
 
-    fn = _build.kernel_library().tzk_sponge_step
-    p32, n0inv = _launch_args(ctx)
-    r2 = (ctypes.c_uint32 * 8)(*[(ctx.R2 >> (32 * i)) & 0xFFFFFFFF for i in range(8)])
-    args = [ctypes.c_void_p(t.data_ptr()) for t in (sponge.state, sponge.buf, sponge.pos, data)]
-    args += [ctypes.c_int64(data.shape[0]), ctypes.c_void_p(digest.data_ptr()), ctypes.c_void_p(chal.data_ptr()),
-             ctypes.c_int(ctx.L), p32, n0inv, r2, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)]
+    fn = getattr(_build.kernel_library(), entry)
+    args = [*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)]
 
     def launches():
         for _ in range(K7_TIMED):
             fn(*args)
         if fn(*args) != 0:
-            raise RuntimeError("tzk_sponge_step refused a launch")
+            raise RuntimeError(f"{entry} refused a launch")
 
     return event_ms(launches, 3) / (K7_TIMED + 1)
 
 
+def k7_round_chain(device, seed: int) -> dict:
+    """Phase 23: K7's round form against its plain version, bit-exact, over
+    K7_ROUNDS rounds chained on one sponge: each round's form from the seed
+    (K7_ROUND_FORMS), its Montgomery elements random below p, and before it
+    a byte-form step of random bytes that brings the round to fill level
+    i % 136, so every level 0..135 starts rounds of each form; every round's
+    state, tail, fill level, plain slot, digest and challenge."""
+    from tpu_zk_torch.fields.arith import field_ctx
+    from tpu_zk_torch.transcript import device_fs
+    from tpu_zk_torch.transcript import kernels as tk
+
+    ctx = field_ctx("bn254_fr")
+    rng = np.random.default_rng(seed + 2312)
+    forms = rng.integers(0, len(K7_ROUND_FORMS), size=K7_ROUNDS)
+    limbs = rng.integers(0, 1 << 16, size=(K7_ROUNDS, 4, ctx.L), dtype=np.uint32)
+    limbs[..., -1] &= 0x2FFF  # top limb < p's 0x3064: every value < p, a Montgomery form
+    pads, pos, starts = [], 0, set()
+    for i in range(K7_ROUNDS):
+        pads.append((i % 136 - pos) % 136)
+        starts.add((pos + pads[-1]) % 136)
+        w = K7_ROUND_FORMS[forms[i]][0]
+        pos = ((i % 136) + 32 * w + 32) % 136  # after absorbing 32 w bytes, and the digest's 32
+    if starts != set(range(136)):
+        raise AssertionError(f"K7 round chain: rounds start at {len(starts)} fill levels, not all 136")
+    offs = np.concatenate([[0], np.cumsum(pads)]).tolist()
+    pool_np = rng.integers(0, 256, size=offs[-1], dtype=np.uint8)
+    records = []  # the kernel's run, then the plain version's
+    for dev in (device, torch.device("cpu")):
+        pool, mont = torch.from_numpy(pool_np).to(dev), torch.from_numpy(limbs.view(np.int32)).to(dev)
+        sponge = device_fs.DeviceSponge.fresh(dev)
+        states = torch.empty((K7_ROUNDS, 25), dtype=torch.int64, device=dev)
+        bufs = torch.empty((K7_ROUNDS, 136), dtype=torch.uint8, device=dev)
+        poss = torch.empty((K7_ROUNDS, 1), dtype=torch.int32, device=dev)
+        slots = torch.zeros((K7_ROUNDS, 4, ctx.L), dtype=torch.int32, device=dev)
+        digests = torch.zeros((K7_ROUNDS, 32), dtype=torch.uint8, device=dev)
+        chals = torch.zeros((K7_ROUNDS, ctx.L), dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        for i in range(K7_ROUNDS):
+            w, big_endian = K7_ROUND_FORMS[forms[i]]
+            tk.sponge_step(sponge.state, sponge.buf, sponge.pos, pool[offs[i] : offs[i + 1]])
+            tk.sponge_round(sponge.state, sponge.buf, sponge.pos, mont[i, :w], slots[i, :w], digests[i], chals[i], ctx,
+                            big_endian)
+            states[i], bufs[i], poss[i] = sponge.state, sponge.buf, sponge.pos
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        records.append(([t.cpu() for t in (states.view(torch.uint8), bufs, poss, slots, digests, chals)],
+                        time.perf_counter() - t0))
+    (kernel_out, kernel_s), (plain_out, plain_s) = records
+    err = 0
+    for what, got, want in zip(("states", "tails", "fill levels", "plain slots", "digests", "challenges"), kernel_out,
+                               plain_out):
+        err = max(err, max_err(got, want))
+        check_equal(f"K7 round form, {K7_ROUNDS} chained rounds: {what}", got, want)
+    counts = {f"w={w} {'BE' if be else 'LE'}": int((forms == k).sum()) for k, (w, be) in enumerate(K7_ROUND_FORMS)}
+    log(f"K7 round form: {K7_ROUNDS} chained rounds ({counts}, each after a byte-form step to fill level i % 136, "
+        f"{sum(pads)} bytes) bit-exact against the plain version; card {kernel_s:.3f} s, plain (CPU) {plain_s:.1f} s")
+    return {"max_abs_err": err, "chain_card_s": kernel_s, "chain_plain_s": plain_s, "rounds": K7_ROUNDS, "forms": counts}
+
+
 def check_k7(device, seed: int, launch: dict) -> dict:
-    """Phase 23, first: K7 against its plain version, bit-exact, on K7_STEPS
-    random steps chained on one sponge from the seed (k <= K7_MAX_DATA data
-    bytes, a squeeze with its BN254 Fr challenge or none): every step's
-    state, tail, fill level, digest and challenge.  digest_to_mont (K1) of the
-    digests 2^256 - 1 and p.  K7's time a launch at a basic-sumcheck round's
-    step (64 bytes and a squeeze) and a GKR round's (96 bytes and a squeeze),
-    beside the plain version's (on the CPU) and the bound: the step's
-    permutations, each a chain of PERMUTATION_DEPTH dependent instructions
-    at the latency phase 2 probed, and the launch probe's time apart."""
+    """Phase 23, first: K7's byte form against its plain version, bit-exact,
+    on K7_STEPS random steps chained on one sponge from the seed (k <=
+    K7_MAX_DATA data bytes, a squeeze with its BN254 Fr challenge or none):
+    every step's state, tail, fill level, digest and challenge; its round
+    form likewise (:func:`k7_round_chain`).  digest_to_mont (K1) of the digests
+    2^256 - 1 and p.  Both forms' time a launch at a basic-sumcheck round
+    (64 bytes and a squeeze) and a GKR round (96 bytes and a squeeze),
+    through the wrapper and with the ctypes arguments made once, beside the
+    plain version's (on the CPU), the byte form's whole round as it was
+    before the round form (from_mont, the pack and the byte form) and the
+    bound: the step's permutations, each a chain of PERMUTATION_DEPTH
+    dependent instructions at the latency phase 2 probed, and the launch
+    probe's time apart."""
+    import ctypes
+
+    from tpu_zk_torch.fields import arith
     from tpu_zk_torch.fields.arith import field_ctx
     from tpu_zk_torch.transcript import device_fs
     from tpu_zk_torch.transcript import kernels as tk
@@ -2125,6 +2297,7 @@ def check_k7(device, seed: int, launch: dict) -> dict:
     perms, _ = sponge_permutations(0, zip(ks.tolist(), squeezes.tolist()))
     log(f"K7: {K7_STEPS} chained steps ({int(ks.sum())} bytes, {int(squeezes.sum())} squeezes, {perms} permutations) "
         f"bit-exact against the plain version; card {kernel_s:.3f} s, plain (CPU) {plain_s:.1f} s")
+    rounds = k7_round_chain(device, seed)
 
     for value in ((1 << 256) - 1, ctx.p):
         digest = torch.tensor(list(value.to_bytes(32, "little")), dtype=torch.uint8, device=device)
@@ -2134,30 +2307,59 @@ def check_k7(device, seed: int, launch: dict) -> dict:
             raise AssertionError(f"digest_to_mont({hex(value)}) is not the digest mod p")
     log("digest_to_mont of 2^256 - 1 and p on the card (K1): equal to the plain version and to the digest mod p")
 
-    out = {"max_abs_err": err, "chain_card_s": kernel_s, "chain_plain_s": plain_s}
+    out = {"max_abs_err": err, "chain_card_s": kernel_s, "chain_plain_s": plain_s, "round_chain": rounds}
     dependent_op_s = launch["dependent_op_ns"] / 1e9
-    for what, k in (("basic round", 2 * 32), ("GKR round", 3 * 32)):
+    p32, n0inv, r2 = tk._field_args(ctx)
+
+    def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+        return ctypes.c_void_p(t.data_ptr())
+
+    for what, w, big_endian in (("basic round", 2, True), ("GKR round", 3, False)):
+        k = 32 * w
+        mont = torch.from_numpy(rng.integers(0, 1 << 15, size=(w, ctx.L), dtype=np.int32)).to(device)
         data = torch.from_numpy(pool_np[:k].copy()).to(device)
         sponge = device_fs.DeviceSponge.fresh(device)
         digest = torch.empty(32, dtype=torch.uint8, device=device)
         chal = torch.empty(ctx.L, dtype=torch.int32, device=device)
-        ms = event_ms(lambda: tk.sponge_step(sponge.state, sponge.buf, sponge.pos, data, digest, chal, ctx), K7_TIMED)
-        raw_ms = k7_raw_ms(ctx, sponge, data, digest, chal)
+        slot = torch.empty((w, ctx.L), dtype=torch.int32, device=device)
+        pack = tk.pack_bytes_be if big_endian else tk.pack_bytes_le
+        st, bf, ps = sponge.state, sponge.buf, sponge.pos
+        ms = event_ms(lambda: tk.sponge_step(st, bf, ps, data, digest, chal, ctx), K7_TIMED)
+        round_ms = event_ms(lambda: tk.sponge_round(st, bf, ps, mont, slot, digest, chal, ctx, big_endian), K7_TIMED)
+
+        def byte_form_round():
+            slot.copy_(arith.from_mont(ctx, mont))
+            tk.sponge_step(st, bf, ps, pack(ctx, slot), digest, chal, ctx)
+
+        byte_round_ms = event_ms(byte_form_round, K7_TIMED)
+        raw_ms = k7_raw_ms("tzk_sponge_step", ptr(st), ptr(bf), ptr(ps), ptr(data), ctypes.c_int64(k), ptr(digest),
+                           ptr(chal), ctypes.c_int(ctx.L), p32, n0inv, r2)
+        round_raw_ms = k7_raw_ms("tzk_sponge_round", ptr(st), ptr(bf), ptr(ps), ptr(mont), ctypes.c_int(w),
+                                 ctypes.c_int(int(big_endian)), ptr(slot), ptr(digest), ptr(chal), p32, n0inv, r2)
         cpu = device_fs.DeviceSponge.fresh("cpu")
-        cpu_data, cpu_digest, cpu_chal = data.cpu(), digest.cpu(), chal.cpu()
+        cpu_data, cpu_digest, cpu_chal, cpu_mont, cpu_slot = data.cpu(), digest.cpu(), chal.cpu(), mont.cpu(), slot.cpu()
         t0 = time.perf_counter()
         for _ in range(20):
             tk.sponge_step(cpu.state, cpu.buf, cpu.pos, cpu_data, cpu_digest, cpu_chal, ctx)
         plain_ms = (time.perf_counter() - t0) * 1e3 / 20
+        t0 = time.perf_counter()
+        for _ in range(20):
+            tk.sponge_round(cpu.state, cpu.buf, cpu.pos, cpu_mont, cpu_slot, cpu_digest, cpu_chal, ctx, big_endian)
+        round_plain_ms = (time.perf_counter() - t0) * 1e3 / 20
         perms, _ = sponge_permutations(0, [(k, True)] * (K7_TIMED + 1))  # the warm-up launch and the timed ones
         least, by = sponge_step_bound_ms(perms / (K7_TIMED + 1), k, dependent_op_s, ctx.L)
-        out[what] = {"ms": ms, "raw_launch_ms": raw_ms, "plain_ms": plain_ms, "bound_ms": least, "bound_by": by,
+        out[what] = {"ms": ms, "raw_launch_ms": raw_ms, "plain_ms": plain_ms, "round_form_ms": round_ms,
+                     "round_form_raw_launch_ms": round_raw_ms, "round_form_plain_ms": round_plain_ms,
+                     "byte_form_round_ms": byte_round_ms, "bound_ms": least, "bound_by": by,
                      "permutations_a_step": perms / (K7_TIMED + 1), "launch_ms": launch["launch_ms"],
                      "bound_with_launch_ms": least + launch["launch_ms"]}
-        log(f"K7 {what} step ({k} bytes, squeeze, challenge): {ms:.5f} ms a launch through the wrapper, {raw_ms:.5f} ms "
-            f"a launch with its arguments made once (plain on the CPU {plain_ms:.3f} ms); "
-            f"bound {least:.5f} ms ({by}: {perms / (K7_TIMED + 1):.3f} permutations of {PERMUTATION_DEPTH} dependent "
-            f"instructions at {launch['dependent_op_ns']:.3f} ns), with the launch {least + launch['launch_ms']:.5f} ms")
+        log(f"K7 {what} step ({k} bytes, squeeze, challenge): byte form {ms:.5f} ms a launch through the wrapper, "
+            f"{raw_ms:.5f} ms with its arguments made once (plain on the CPU {plain_ms:.3f} ms); round form ({w} "
+            f"elements {'BE' if big_endian else 'LE'}) {round_ms:.5f} ms through the wrapper, {round_raw_ms:.5f} ms "
+            f"with its arguments made once (plain {round_plain_ms:.3f} ms); the round made of from_mont, the pack and "
+            f"the byte form {byte_round_ms:.5f} ms; bound {least:.5f} ms ({by}: {perms / (K7_TIMED + 1):.3f} "
+            f"permutations of {PERMUTATION_DEPTH} dependent instructions at {launch['dependent_op_ns']:.3f} ns), "
+            f"with the launch {least + launch['launch_ms']:.5f} ms")
     return out
 
 
@@ -2359,13 +2561,16 @@ def sharded_paths(device, card: str, inputs_dir: str) -> dict:
                                             == one["json"], "the proof JSON differs from the one-device prove's"))
     rounds = depth * (depth + 1)  # layer i's two phases of i + 1 rounds
     shard_folds = sum(2 * D * (s - log_d) for s in range(1, depth + 1) if 1 << s >= 2 * D)
-    require(f"sharded GKR depth {depth}", run["launches"]["sponge_step"] == rounds,
-            f"K7 launched {run['launches']['sponge_step']} times, not once a round ({rounds})")
+    require(f"sharded GKR depth {depth}", k7_launches(run["launches"]) == rounds,
+            f"K7 launched {k7_launches(run['launches'])} times, not once a round ({rounds})")
     require(f"sharded GKR depth {depth}", run["launches"]["fold"] >= shard_folds,
             f"K2 launched {run['launches']['fold']} times, fewer than each shard's fold every sharded round "
             f"({shard_folds})")
+    round_form = round_form_against_byte_form(
+        f"sharded GKR depth {depth}", lambda: sharded_gkr.prove(circuit, inputs, mesh), rounds,
+        lambda a, b: gkr_proof_to_json(a, ctx.name) == gkr_proof_to_json(b, ctx.name))
     out["gkr"] = {"depth": depth, **run, "k2_shard_folds": shard_folds, "one_device_fused_warm_s": one["warm_s"],
-                  "one_device_host_synced_s": one["host_synced_s"]}
+                  "one_device_host_synced_s": one["host_synced_s"], "round_form": round_form}
     log(f"sharded GKR depth {depth} ADD tree: " + json.dumps(out["gkr"]))
     del inputs, circuit, one
 

@@ -31,8 +31,8 @@ from tpu_zk_torch.sumcheck import basic, fused, gkr_sumcheck
 from tpu_zk_torch.transcript import device_fs
 from tpu_zk_torch.transcript.fiat_shamir import Transcript
 from tpu_zk_torch.transcript.keccak import RATE, Keccak256
-from tpu_zk_torch.transcript.kernels import sponge_step
-from tpu_zk_torch.utils import serialize
+from tpu_zk_torch.transcript.kernels import sponge_round, sponge_round_plain, sponge_step, sponge_step_plain
+from tpu_zk_torch.utils import counters, serialize
 from tpu_zk_torch.utils.convert import circuit_from_arrays, limbs_from_numpy, limbs_to_numpy
 
 tdevice.set_default_device("cpu")  # these tests run the plain versions, on the CPU
@@ -271,6 +271,106 @@ def test_digest_to_mont_edges_and_bls12_381_fq_raises():
         s.challenge_mont(fq)
     with pytest.raises(ValueError):  # a state of the wrong width
         sponge_step(s.state[:24], s.buf, s.pos, torch.empty(0, dtype=torch.uint8))
+
+
+ROUND_POS = sorted(set(range(0, RATE, 5)) | {104, 135})  # 29 fill levels, the block's last byte among them
+
+
+def _round_case(ctx, w: int, pos: int):
+    """A random sponge at fill level pos and w random Montgomery elements."""
+    pairs, buf, _ = _sponge_input(0, pos)
+    rng = np.random.default_rng(500 + 7 * w + pos)
+    mont = ctx.array([int.from_bytes(rng.bytes(32), "little") % ctx.p for _ in range(w)], mont=False, device="cpu")
+    return (torch.from_numpy(_lanes_from_pairs(pairs).copy()), torch.from_numpy(buf.copy()),
+            torch.tensor([pos], dtype=torch.int32), mont)
+
+
+@pytest.mark.parametrize("w,big_endian", [(2, True), (3, False)])
+def test_sponge_round_matches_from_mont_pack_and_step(w, big_endian):
+    """K7's round form (its plain version, through the wrapper) equals
+    from_mont, pack_bytes_be/le and the byte form's plain version at 29 fill
+    levels over 0..135, 135 among them: state, tail, fill level, plain slot,
+    digest and challenge; and it counts from_mont's w products."""
+    ctx = arith.field_ctx("bn254_fr")
+    pack = device_fs.pack_bytes_be if big_endian else device_fs.pack_bytes_le
+    for pos in ROUND_POS:
+        state, buf, p, mont = _round_case(ctx, w, pos)
+        want_state, want_buf, want_p = state.clone(), buf.clone(), p.clone()
+        want_slot = arith.from_mont(ctx, mont)
+        want_digest, want_chal = torch.empty(32, dtype=torch.uint8), torch.empty(ctx.L, dtype=torch.int32)
+        sponge_step_plain(want_state, want_buf, want_p, pack(ctx, want_slot), want_digest, want_chal, ctx)
+        slot, digest = torch.empty((w, ctx.L), dtype=torch.int32), torch.empty(32, dtype=torch.uint8)
+        chal = torch.empty(ctx.L, dtype=torch.int32)
+        counters.enable(True)
+        counters.reset()
+        try:
+            sponge_round(state, buf, p, mont, slot, digest, chal, ctx, big_endian=big_endian)
+            assert counters.summary() == {ctx.name: {"mul": w}}
+        finally:
+            counters.enable(False)
+        for got, want in ((state, want_state), (buf, want_buf), (p, want_p), (slot, want_slot), (digest, want_digest),
+                          (chal, want_chal)):
+            assert torch.equal(got, want), (w, big_endian, pos)
+        assert sponge_round.launches == 0  # the CPU runs the plain version
+
+
+def test_sponge_round_plain_chains_across_a_block():
+    """Rounds chained on one sponge through the plain version equal the byte
+    form's steps on a copy, through every block boundary of 40 rounds."""
+    ctx = arith.field_ctx("bn254_fr")
+    state, buf, p, _ = _round_case(ctx, 1, 100)
+    twin = (state.clone(), buf.clone(), p.clone())
+    for i in range(40):
+        w, big_endian = (2, True) if i % 3 == 0 else (3 + i % 2, False)
+        _, _, _, mont = _round_case(ctx, w, i)
+        slot, digest = torch.empty((w, ctx.L), dtype=torch.int32), torch.empty(32, dtype=torch.uint8)
+        chal = torch.empty(ctx.L, dtype=torch.int32)
+        sponge_round_plain(state, buf, p, mont, slot, digest, chal, ctx, big_endian)
+        plain = arith.from_mont(ctx, mont)
+        d2, c2 = torch.empty(32, dtype=torch.uint8), torch.empty(ctx.L, dtype=torch.int32)
+        pack = device_fs.pack_bytes_be if big_endian else device_fs.pack_bytes_le
+        sponge_step(*twin, pack(ctx, plain), d2, c2, ctx)
+        assert torch.equal(slot, plain) and torch.equal(digest, d2) and torch.equal(chal, c2), i
+        assert torch.equal(state, twin[0]) and torch.equal(buf, twin[1]) and torch.equal(p, twin[2]), i
+
+
+def test_sponge_round_raises():
+    """BLS12-381 Fq (24 limbs), a wrong dtype or shape, too many elements and
+    tensors on mixed devices raise; nothing runs and nothing is counted."""
+    ctx = arith.field_ctx("bn254_fr")
+    state, buf, p, mont = _round_case(ctx, 2, 7)
+
+    def outs(w=2, L=ctx.L):
+        return torch.empty((w, L), dtype=torch.int32), torch.empty(32, dtype=torch.uint8), torch.empty(L, dtype=torch.int32)
+
+    fq = arith.field_ctx("bls12_381_fq")
+    with pytest.raises(ValueError):
+        sponge_round(state, buf, p, fq.array([1, 2], device="cpu"), *outs(L=fq.L), fq, big_endian=True)
+    bad = [
+        (state, buf, p, mont.to(torch.int64), *outs()),  # dtype of mont
+        (state, buf, p, mont, torch.empty((2, ctx.L), dtype=torch.int64), *outs()[1:]),  # dtype of the slot
+        (state, buf, p, mont, *outs(w=3)),  # slot of another width
+        (state, buf, p, mont[0], *outs(w=1)),  # mont not [w, L]
+        (state, buf, p, mont, outs()[0], torch.empty(31, dtype=torch.uint8), outs()[2]),  # digest shape
+        (state, buf, p, mont, *outs()[:2], torch.empty(ctx.L - 1, dtype=torch.int32)),  # challenge shape
+        (state[:24], buf, p, mont, *outs()),  # state width
+        (state, buf, p.to(torch.int64), mont, *outs()),  # pos dtype
+        (state, buf, p, mont.t().contiguous().t(), *outs()),  # mont not contiguous
+        (state, buf, p, mont.repeat(65, 1), *outs(w=130)),  # more elements than a launch takes
+        (state.to("meta"), buf, p, mont, *outs()),  # mixed devices
+    ]
+    counters.reset()
+    counters.enable()
+    try:
+        for i, args in enumerate(bad):
+            before = (state.clone(), buf.clone(), p.clone())
+            with pytest.raises(ValueError):
+                sponge_round(*args, ctx, big_endian=False)
+            assert torch.equal(state, before[0]) and torch.equal(buf, before[1]) and torch.equal(p, before[2]), i
+        assert counters.summary() == {}  # a refused call counts no product
+    finally:
+        counters.enable(False)
+        counters.reset()
 
 
 # -- the fused provers ---------------------------------------------------------

@@ -90,6 +90,8 @@ KERNEL_ARGTYPES = {
     "tzk_keccak_rows": [_PTR, _PTR, _I64, _I32, _PTR],
     # state, buf, pos, data, k, digest, challenge (both may be null), L, p32, n0inv, r2_32, stream (csrc/sponge.cu)
     "tzk_sponge_step": [_PTR, _PTR, _PTR, _PTR, _I64, _PTR, _PTR, _I32, _PTR, _U32, _PTR, _PTR],
+    # state, buf, pos, mont, w, big_endian, slot, digest, challenge, p32, n0inv, r2_32, stream (csrc/sponge.cu)
+    "tzk_sponge_round": [_PTR, _PTR, _PTR, _PTR, _I32, _I32, _PTR, _PTR, _PTR, _PTR, _U32, _PTR, _PTR],
     # stream: one launch of an empty kernel (csrc/probe.cu)
     "tzk_empty_probe": [_PTR],
     # out, blocks (of 256 threads), iters, a, b, stream: blocks * 256 * 8 * iters multiply-adds (csrc/probe.cu)

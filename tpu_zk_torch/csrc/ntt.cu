@@ -342,11 +342,13 @@ constexpr size_t ntt_smem_bytes() {
 }
 
 namespace {
-// blocks an SM holds, by log_m (0: not asked yet), and the card's SMs; in
-// an unnamed namespace, so that two libraries built from variants of this
-// file and loaded in one process keep their own
-int ntt_blocks_per_sm[kNttMaxLogM + 1];
-int ntt_sms;
+// blocks an SM holds, by card and log_m (0: not asked yet), and each card's
+// SMs, kept for the first kNttCards device ordinals (a card above them asks
+// at every launch); in an unnamed namespace, so that two libraries built
+// from variants of this file and loaded in one process keep their own
+constexpr int kNttCards = 64;
+int ntt_blocks_per_sm[kNttCards][kNttMaxLogM + 1];
+int ntt_sms[kNttCards];
 }  // namespace
 
 template <int LOG_M>
@@ -356,11 +358,14 @@ int ntt_launch(const uint32_t* x, const uint32_t* tws, const uint32_t* pre, cons
   using T = NttTile<LOG_M>;
   constexpr size_t smem = ntt_smem_bytes<LOG_M>();
   static_assert(smem <= 48 * 1024, "a block takes at most 48 KB of shared memory without opting in");
-  int& blocks_per_sm = ntt_blocks_per_sm[LOG_M];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);  // the card this launch goes to
+  if (err != cudaSuccess) return (int)err;
+  int asked_blocks = 0, asked_sms = 0;
+  int& blocks_per_sm = dev < kNttCards ? ntt_blocks_per_sm[dev][LOG_M] : asked_blocks;
+  int& sms = dev < kNttCards ? ntt_sms[dev] : asked_sms;
   if (blocks_per_sm == 0) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&ntt_sms, cudaDevAttrMultiProcessorCount, dev);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks_per_sm, ntt_pass_kernel<LOG_M>, T::THREADS, smem);
     if (err != cudaSuccess) return (int)err;
@@ -369,7 +374,7 @@ int ntt_launch(const uint32_t* x, const uint32_t* tws, const uint32_t* pre, cons
   // persistent blocks: as many as the card holds at once, each walking over tiles
   const int64_t n_cols = A * C;
   const int64_t n_tiles = (n_cols + T::COLS - 1) / T::COLS;
-  int64_t grid = (int64_t)blocks_per_sm * ntt_sms;
+  int64_t grid = (int64_t)blocks_per_sm * sms;
   if (grid > n_tiles) grid = n_tiles;
   if (products != nullptr && grid > count_slots / T::THREADS) grid = count_slots / T::THREADS;
   ntt_pass_kernel<LOG_M><<<(unsigned)grid, T::THREADS, smem, stream>>>(x, tws, pre, scale, dst, out, C, n_cols,

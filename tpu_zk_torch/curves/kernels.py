@@ -44,7 +44,7 @@ import torch
 
 from .. import _build
 from ..fields import arith
-from ..fields.kernels import _check_limbs, _launch, _launch_args, _on_cpu, _ptr, _raise_on
+from ..fields.kernels import _check_limbs, _device_index, _launch, _launch_args, _ptr, _raise_on
 from . import ec_device
 from .ec_device import Point
 from .params import CURVES
@@ -146,7 +146,8 @@ def msm_buckets(ctx: arith.FieldCtx, b3: torch.Tensor, points: Point, entries: t
         raise ValueError(f"msm_buckets: units must be contiguous int32 [U, 2], got {units.dtype} {tuple(units.shape)}")
     if entries is not None and (entries.dtype != torch.int32 or entries.dim() != 1 or not entries.is_contiguous()):
         raise ValueError(f"msm_buckets: entries must be contiguous int32 [E], got {entries.dtype} {tuple(entries.shape)}")
-    if _on_cpu(*points, units, b3, *([] if entries is None else [entries])):
+    index = _device_index(*points, units, b3, *([] if entries is None else [entries]))
+    if index < 0:
         return msm_buckets_plain(ctx, b3, points, entries, units)
     U = units.shape[0]
     out = torch.empty((U, 3, ctx.L), dtype=torch.int32, device=units.device)
@@ -154,7 +155,7 @@ def msm_buckets(ctx: arith.FieldCtx, b3: torch.Tensor, points: Point, entries: t
         return out
     p32, n0inv = _launch_args(ctx)
     rc = _launch(
-        _build.kernel_library().tzk_msm_buckets, units.device,
+        _build.kernel_library().tzk_msm_buckets, index,
         _ptr(points[0]), _ptr(points[1]), _ptr(points[2]), ctypes.c_int64(stride),
         None if entries is None else ctypes.c_void_p(entries.data_ptr()), ctypes.c_void_p(units.data_ptr()),
         _ptr(ctx.one_mont(units.device)), _ptr(out), ctypes.c_int64(U), ctypes.c_int(ctx.L),
@@ -178,13 +179,14 @@ def msm_bucket_reduce(ctx: arith.FieldCtx, b3: torch.Tensor, buckets: torch.Tens
                          f"got {buckets.dtype} {tuple(buckets.shape)}")
     if m < 1:
         raise ValueError(f"msm_bucket_reduce: segment of {m} buckets")
-    if _on_cpu(buckets, b3):
+    index = _device_index(buckets, b3)
+    if index < 0:
         return msm_bucket_reduce_plain(ctx, b3, buckets, m)
     W, B = buckets.shape[:2]
     out = torch.empty((W, -(-B // m), 3, ctx.L), dtype=torch.int32, device=buckets.device)
     p32, n0inv = _launch_args(ctx)
     rc = _launch(
-        _build.kernel_library().tzk_msm_bucket_reduce, buckets.device,
+        _build.kernel_library().tzk_msm_bucket_reduce, index,
         _ptr(buckets), _ptr(out), ctypes.c_int(W), ctypes.c_int(B), ctypes.c_int(m), ctypes.c_int(ctx.L),
         ctypes.c_int(_b3_int(ctx)), p32, n0inv,
     )

@@ -97,15 +97,14 @@ def fold_plain(ctx: arith.FieldCtx, flat: torch.Tensor, r: torch.Tensor, block: 
 # ---------------------------------------------------------------------------
 
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True if all lie on the CPU, False if all on one CUDA device; else raise."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
-    device = devices.pop()
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
-    return device.type == "cpu"
+def _device_index(*tensors: torch.Tensor) -> int:
+    """-1 if all lie on the CPU, the card's index if all lie on one CUDA
+    device; else raise."""
+    index = tensors[0].get_device()
+    for t in tensors:
+        if t.get_device() != index or (index < 0 and not t.is_cpu):
+            raise ValueError(f"tensors on different devices: {sorted({str(t.device) for t in tensors})}")
+    return index
 
 
 def _check_limbs(name: str, t: torch.Tensor, L: int) -> None:
@@ -129,19 +128,25 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    if t.data_ptr() % 16:
-        raise ValueError("kernel operands must be 16-byte aligned")
-    return ctypes.c_void_p(t.data_ptr())
+def _ptr(t: torch.Tensor, align: int = 16) -> int:
+    """``t``'s address, checked to be ``align``-byte aligned."""
+    p = t.data_ptr()
+    if p % align:
+        raise ValueError(f"kernel operands must be {align}-byte aligned")
+    return p
 
 
-def _launch(entry, device: torch.device, *args) -> int:
+def _launch(entry, index: int, *args) -> int:
     """Call the kernel library's ``entry`` with ``args`` and the current
-    stream of ``device``, the card the operands lie on, with that card made
+    stream of card ``index``, the card the operands lie on, with that card
     the current one: the runtime launches on the current card, which for a
-    shard on another card than the first is not the operands' unless set."""
-    with torch.cuda.device(device):
-        return entry(*args, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    shard on another card than the first is not the operands' unless set
+    (the switch is made only then)."""
+    stream = torch.cuda.current_stream(index).cuda_stream
+    if index == torch.cuda.current_device():
+        return entry(*args, stream)
+    with torch.cuda.device(index):
+        return entry(*args, stream)
 
 
 def mont_mul(ctx: arith.FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -150,7 +155,8 @@ def mont_mul(ctx: arith.FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Ten
     _check_limbs("b", b, ctx.L)
     if a.dim() != 2 or b.dim() not in (1, 2) or (b.dim() == 2 and b.shape != a.shape):
         raise ValueError(f"mont_mul: shapes {tuple(a.shape)} x {tuple(b.shape)}")
-    if _on_cpu(a, b):
+    index = _device_index(a, b)
+    if index < 0:
         return mont_mul_plain(ctx, a, b)
     out = torch.empty_like(a)
     M = a.shape[0]
@@ -158,7 +164,7 @@ def mont_mul(ctx: arith.FieldCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Ten
         return out
     p32, n0inv = _launch_args(ctx)
     rc = _launch(
-        _build.kernel_library().tzk_mont_mul, a.device,
+        _build.kernel_library().tzk_mont_mul, index,
         _ptr(a), _ptr(b), _ptr(out), ctypes.c_int64(M), ctypes.c_int(int(b.dim() == 1)),
         ctypes.c_int(ctx.L), p32, n0inv,
     )
@@ -181,7 +187,8 @@ def addsub(ctx: arith.FieldCtx, a: torch.Tensor, b: torch.Tensor, kind: str) -> 
     _check_limbs("b", b, ctx.L)
     if a.dim() != 2 or b.dim() not in (1, 2) or (b.dim() == 2 and b.shape != a.shape):
         raise ValueError(f"addsub: shapes {tuple(a.shape)} {kind} {tuple(b.shape)}")
-    if _on_cpu(a, b):
+    index = _device_index(a, b)
+    if index < 0:
         return (add_plain if kind == "add" else sub_plain)(ctx, a, b)
     out = torch.empty_like(a)
     M = a.shape[0]
@@ -189,7 +196,7 @@ def addsub(ctx: arith.FieldCtx, a: torch.Tensor, b: torch.Tensor, kind: str) -> 
         return out
     p32, _ = _launch_args(ctx)
     rc = _launch(
-        _build.kernel_library().tzk_addsub, a.device,
+        _build.kernel_library().tzk_addsub, index,
         _ptr(a), _ptr(b), _ptr(out), ctypes.c_int64(M), ctypes.c_int(int(b.dim() == 1)),
         ctypes.c_int(int(kind == "sub")), ctypes.c_int(ctx.L), p32,
     )
@@ -215,7 +222,8 @@ def fold(ctx: arith.FieldCtx, flat: torch.Tensor, r: torch.Tensor, block: int):
         lo = flat[:, : flat.shape[1] // 2]
         for op in ("sub", "mul", "add"):
             counters.bump(ctx.name, op, lo)
-    if _on_cpu(flat, r):
+    index = _device_index(flat, r)
+    if index < 0:
         return fold_plain(ctx, flat, r, block)
     B, N2, L = flat.shape
     T = N2 // 2
@@ -226,7 +234,7 @@ def fold(ctx: arith.FieldCtx, flat: torch.Tensor, r: torch.Tensor, block: int):
         return folded, sums
     p32, n0inv = _launch_args(ctx)
     rc = _launch(
-        _build.kernel_library().tzk_fold, flat.device,
+        _build.kernel_library().tzk_fold, index,
         _ptr(flat), _ptr(r), _ptr(folded), ctypes.c_void_p(sums.data_ptr()),
         ctypes.c_int64(B), ctypes.c_int64(T), ctypes.c_int64(block),
         ctypes.c_int(L), p32, n0inv,

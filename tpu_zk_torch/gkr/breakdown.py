@@ -82,7 +82,7 @@ STAGES = _COMMON_STAGES + [
 # the fused prover's (the default) stages
 FUSED_STAGES = _COMMON_STAGES + [
     (fused, "_interpolate_mont", "device interpolation (K1, K3)"),
-    (fused, "sponge_step", "device sponge (K7)"),
+    (fused, "sponge_round", "device sponge (K7)"),
     (gkr_sumcheck, "_prove_fused", "fused phase, rest (sponge seed, reduction, one copy of coefficients and digests)"),
 ]
 

@@ -31,7 +31,7 @@ import ctypes
 import torch
 
 from .. import _build
-from ..fields.kernels import _launch, _on_cpu, _ptr, _raise_on
+from ..fields.kernels import _device_index, _launch, _ptr, _raise_on
 from ..transcript.keccak import _RC, _ROT, RATE
 
 _M32 = 0xFFFFFFFF
@@ -105,13 +105,14 @@ def keccak_rows(data: torch.Tensor, out: torch.Tensor | None = None) -> torch.Te
         out = torch.empty((n, 32), dtype=torch.uint8, device=data.device)
     elif out.dtype != torch.uint8 or out.shape != (n, 32) or not out.is_contiguous():
         raise ValueError(f"keccak_rows: out must be a contiguous [{n}, 32] uint8 tensor")
-    if _on_cpu(data, out):
+    index = _device_index(data, out)
+    if index < 0:
         out.copy_(keccak_rows_plain(data))
         return out
     if n == 0:
         return out
     rc = _launch(
-        _build.kernel_library().tzk_keccak_rows, data.device,
+        _build.kernel_library().tzk_keccak_rows, index,
         ctypes.c_void_p(data.data_ptr()), _ptr(out), ctypes.c_int64(n), ctypes.c_int(w))
     _raise_on(rc, "keccak_rows")
     keccak_rows.launches += 1

@@ -38,7 +38,7 @@ import torch
 
 from .. import _build
 from ..fields import arith
-from ..fields.kernels import _check_limbs, _launch, _launch_args, _on_cpu, _ptr, _raise_on
+from ..fields.kernels import _check_limbs, _device_index, _launch, _launch_args, _ptr, _raise_on
 from ..fields.kernels import add_plain, mont_mul_plain, sub_plain
 
 MAX_LOG_M = 10  # the largest radix the kernel takes (csrc/ntt.cu kNttMaxLogM)
@@ -112,7 +112,8 @@ def _dif_pass(ctx, x, tws, pre, scale, dst, count: bool):
         if dst.dtype != torch.int64 or dst.shape != (A * m * C,) or not dst.is_contiguous():
             raise ValueError(f"dif_pass: dst must be a contiguous int64 [{A * m * C}] permutation")
         operands.append(dst)
-    if _on_cpu(*operands):
+    index = _device_index(*operands)
+    if index < 0:
         n = A * m * C
         products = A * C * (m // 2 * log_m - (m - 1)) + (n if pre is not None else 0) + (n if scale is not None else 0)
         return dif_pass_plain(ctx, x, tws, pre, scale, dst), products
@@ -126,7 +127,7 @@ def _dif_pass(ctx, x, tws, pre, scale, dst, count: bool):
     p32, n0inv = _launch_args(ctx)
     null = ctypes.c_void_p(None)
     rc = _launch(
-        _build.kernel_library().tzk_ntt_pass, x.device,
+        _build.kernel_library().tzk_ntt_pass, index,
         _ptr(x), _ptr(tws) if tws.numel() else null, null if pre is None else _ptr(pre),
         null if scale is None else _ptr(scale), null if dst is None else _ptr(dst), _ptr(out), ctypes.c_int64(A),
         ctypes.c_int(log_m), ctypes.c_int64(C), ctypes.c_int(L), p32, n0inv,

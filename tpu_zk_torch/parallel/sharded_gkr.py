@@ -21,9 +21,10 @@ prover, :mod:`tpu_zk_torch.gkr.sparse` (its phase tables, its layer loop
   - **each round** adds the shards' lazy sums of the round univariate's
     evaluations (``fused._round_lazy_sums``: p S / 2 terms in all, below
     2^48 a limb up to S = 2^31, as on one device) and reduces them once
-    (``lazy_to_mont``); the interpolated coefficients are absorbed on the
-    replicated device sponge, one K7 launch on each distinct device of
-    every process, and each shard folds at its device's challenge;
+    (``lazy_to_mont``); the interpolated Montgomery coefficients are
+    replicated and absorbed on the replicated device sponge, one K7 round
+    launch on each distinct device of every process (each takes them out of
+    Montgomery form itself), and each shard folds at its device's challenge;
   - **the last log2(D) rounds** of each phase run on the gathered D-row
     working set, gathered on every process's primary
     (:func:`fused.fused_gkr_sumcheck_prove` with the primary's sponge);
@@ -48,9 +49,9 @@ from ..poly.multilinear import fold
 from ..poly.univariate import DenseUnivariatePolynomial
 from ..sumcheck import fused
 from ..sumcheck.gkr_sumcheck import SumcheckProverProof
-from ..transcript.device_fs import DeviceSponge, pack_bytes_le
+from ..transcript.device_fs import DeviceSponge
 from ..transcript.fiat_shamir import Transcript
-from ..transcript.kernels import sponge_step
+from ..transcript.kernels import sponge_round
 from .mesh import Mesh, copy_to, cross_shard_sum, gather, reduce_scatter, replicated, scatter
 
 
@@ -150,21 +151,22 @@ def _phase2_sharded(ctx: FieldCtx, mesh: Mesh, gates: list, w_int: list, w_out: 
 def _round_sharded(ctx: FieldCtx, mesh: Mesh, stacked: list, vinv: torch.Tensor, sponges: dict,
                    coeffs: torch.Tensor, digest: torch.Tensor, challenge: torch.Tensor) -> list:
     """One round over the interleaved working sets [p, k, M, L]: the shards'
-    lazy sums added and reduced once, the coefficients interpolated (into
-    ``coeffs`` [k+1, L], plain) and absorbed LE on every replica of the
-    sponge (``digest`` and ``challenge`` the primary's), and each shard's
-    fold at its device's challenge (K2)."""
+    lazy sums added and reduced once, the coefficients interpolated and
+    replicated in Montgomery form, and absorbed LE on every replica of the
+    sponge (the primary's writes the plain ``coeffs`` [k+1, L], ``digest``
+    and ``challenge``), and each shard's fold at its device's challenge
+    (K2)."""
     lazy = cross_shard_sum(mesh, mesh.map(lambda k, dev: fused._round_lazy_sums(ctx, stacked[k])))
-    coeffs.copy_(arith.from_mont(ctx, fused._interpolate_mont(ctx, vinv, arith.lazy_to_mont(ctx, lazy))))
-    data = replicated(mesh, pack_bytes_le(ctx, coeffs))
+    coeffs_m = replicated(mesh, fused._interpolate_mont(ctx, vinv, arith.lazy_to_mont(ctx, lazy)))
     r = {}
     for dev, sponge in sponges.items():
         if dev == mesh.primary:
-            d, r[dev] = digest, challenge
+            slot, d, r[dev] = coeffs, digest, challenge
         else:
+            slot = torch.empty_like(coeffs_m[dev])
             d = torch.empty(32, dtype=torch.uint8, device=dev)
             r[dev] = torch.empty(ctx.L, dtype=torch.int32, device=dev)
-        sponge_step(sponge.state, sponge.buf, sponge.pos, data[dev], d, r[dev], ctx)
+        sponge_round(sponge.state, sponge.buf, sponge.pos, coeffs_m[dev], slot, d, r[dev], ctx, big_endian=False)
     return mesh.map(lambda k, dev: fold(ctx, stacked[k], 0, r[dev]))
 
 

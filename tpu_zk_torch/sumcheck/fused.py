@@ -4,10 +4,11 @@ device, with no copy to the host between the first round and the last.
 Counterpart of :mod:`tpu_zk.sumcheck.fused`.  ``tpu_zk`` compiles a whole
 prove into one program; torch runs eagerly, so here each prover is a Python
 loop that only *enqueues* work on the table's device.  A round is the fold
-and the next round's sums (K2, then a small reduction), ``from_mont`` (K1),
-the byte pack, one K7 launch (:func:`tpu_zk_torch.transcript.kernels.sponge_step`:
-absorb, squeeze) and the next challenge in Montgomery form, which K7 writes
-and the next fold reads where it lies.  Nothing reads a device value on the
+and the next round's sums (K2, then a small reduction) and one K7 launch
+(:func:`tpu_zk_torch.transcript.kernels.sponge_round`: the round's elements
+out of Montgomery form into their output slot, their bytes packed, absorbed
+and squeezed), which writes the next challenge in Montgomery form where the
+next fold reads it.  Nothing reads a device value on the
 host inside the loop (no ``.item()``, no copy), so the host only launches
 and the card never waits for it; the callers copy the results once, after
 the loop.  Transcript bytes equal the host loop's (``tests/test_torch_fused.py``).
@@ -24,9 +25,8 @@ from ..fields import arith
 from ..fields.arith import FieldCtx, _limbs_of_int, field_ctx
 from ..poly.composed import product_of_factors
 from ..poly.multilinear import fold, fold_and_half_sums, sum_halves
-from ..transcript.device_fs import pack_bytes_be, pack_bytes_le
 from ..transcript.keccak import RATE
-from ..transcript.kernels import sponge_step
+from ..transcript.kernels import sponge_round
 
 
 def final_pos(pos: int, n_rounds: int, absorb_bytes: int) -> int:
@@ -64,8 +64,8 @@ def fused_basic_prove(ctx: FieldCtx, table: torch.Tensor, state: torch.Tensor, b
     univ_m = sum_halves(ctx, table)
     for rnd in range(n):
         univs_mont[rnd] = univ_m
-        univs_plain[rnd] = arith.from_mont(ctx, univ_m)
-        sponge_step(state, buf, pos, pack_bytes_be(ctx, univs_plain[rnd]), digests[rnd], challenges[rnd], ctx)
+        sponge_round(state, buf, pos, univs_mont[rnd], univs_plain[rnd], digests[rnd], challenges[rnd], ctx,
+                     big_endian=True)
         if rnd < n - 1:
             table, univ_m = fold_and_half_sums(ctx, table, challenges[rnd])
     return univs_plain, univs_mont, digests, state, buf
@@ -173,7 +173,7 @@ def fused_gkr_sumcheck_prove(ctx: FieldCtx, stacked: torch.Tensor, state: torch.
     vinv = _vandermonde_on(ctx.name, d + 1, stacked.device)
     coeffs, digests, challenges = _round_outputs(ctx, n, d + 1, stacked.device)
     for rnd in range(n):
-        coeffs[rnd] = arith.from_mont(ctx, _interpolate_mont(ctx, vinv, _round_evals_mont(ctx, stacked)))
-        sponge_step(state, buf, pos, pack_bytes_le(ctx, coeffs[rnd]), digests[rnd], challenges[rnd], ctx)
+        coeffs_m = _interpolate_mont(ctx, vinv, _round_evals_mont(ctx, stacked))
+        sponge_round(state, buf, pos, coeffs_m, coeffs[rnd], digests[rnd], challenges[rnd], ctx, big_endian=False)
         stacked = fold(ctx, stacked, 0, challenges[rnd])
     return coeffs, digests, state, buf, stacked

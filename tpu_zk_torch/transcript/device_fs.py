@@ -7,8 +7,9 @@ clone-finalize (pad 0x01 ... 0x80, or 0x81 when one byte is left) to
 squeeze, then absorb of the 32-byte digest into the live sponge; challenges
 reduce the digest little-endian mod p.  With the sponge on the device the
 rounds of a fused prover (:mod:`tpu_zk_torch.sumcheck.fused`) chain with no
-copy to the host: each round's absorb and squeeze is one K7 launch
-(:func:`.kernels.sponge_step`).
+copy to the host: each round's transcript step is one K7 launch
+(:func:`.kernels.sponge_round`, which also takes the round's elements out of
+Montgomery form and packs their bytes).
 
 Representation: ``state`` [25] int64 (each 64-bit lane's bits), ``buf``
 [136] uint8 (the unabsorbed tail, zero from ``pos`` on) and ``pos`` [1] int32,
@@ -30,7 +31,7 @@ from ..device import resolve
 from ..fields import arith
 from ..fields.arith import FieldCtx
 from .keccak import RATE, Keccak256
-from .kernels import digest_limbs, keccak_f1600_device, sponge_step
+from .kernels import digest_limbs, keccak_f1600_device, pack_bytes_be, pack_bytes_le, sponge_step
 
 __all__ = ["DeviceSponge", "absorb_dyn", "squeeze_dyn", "digest_to_mont", "pack_bytes_be", "pack_bytes_le",
            "keccak_f1600_device"]
@@ -123,20 +124,3 @@ def digest_to_mont(ctx: FieldCtx, digest: torch.Tensor) -> torch.Tensor:
     whose limbs do not span 256 bits (BLS12-381 Fq) raises.
     """
     return arith.mont_mul(ctx, digest_limbs(ctx, digest), ctx.limbs(ctx.R2, digest.device))
-
-
-def pack_bytes_be(ctx: FieldCtx, plain: torch.Tensor) -> torch.Tensor:
-    """[..., L] strict plain limbs -> [... * nbytes] uint8 big-endian byte
-    stream (arkworks ``to_bytes_be``, the basic round and the claims)."""
-    if ctx.L * 2 != ctx.nbytes:
-        raise ValueError(f"{ctx.name}: {ctx.L} limbs do not serialize to {ctx.nbytes} bytes")
-    rev = plain.flip(-1)
-    return torch.stack([(rev >> 8) & 0xFF, rev & 0xFF], dim=-1).reshape(-1).to(torch.uint8)
-
-
-def pack_bytes_le(ctx: FieldCtx, plain: torch.Tensor) -> torch.Tensor:
-    """[..., L] strict plain limbs -> [... * nbytes] uint8 little-endian byte
-    stream (the GKR round univariates, ``sumcheck_gkr_protocol.rs:145-150``)."""
-    if ctx.L * 2 != ctx.nbytes:
-        raise ValueError(f"{ctx.name}: {ctx.L} limbs do not serialize to {ctx.nbytes} bytes")
-    return torch.stack([plain & 0xFF, (plain >> 8) & 0xFF], dim=-1).reshape(-1).to(torch.uint8)

@@ -1,8 +1,8 @@
-"""The device sponge kernel (K7): its wrapper and plain version.
+"""The device sponge kernel (K7): its two wrappers and their plain versions.
 
-K7 ``sponge_step``: one step of a Keccak-256 sponge kept on the device as
-``state`` [25] int64 (the 64-bit lanes' bits), ``buf`` [136] uint8 (the
-unabsorbed tail, zero from ``pos`` on) and ``pos`` [1] int32.  It absorbs
+K7 ``sponge_step`` (the byte form): one step of a Keccak-256 sponge kept on
+the device as ``state`` [25] int64 (the 64-bit lanes' bits), ``buf`` [136]
+uint8 (the unabsorbed tail, zero from ``pos`` on) and ``pos`` [1] int32.  It absorbs
 ``data`` [k] uint8 at ``pos``, permuting every full block, and with a
 ``digest`` [32] uint8 output it squeezes as ``sha3::Keccak256`` does in the
 reference transcript: it pads a clone, permutes it, writes the digest and
@@ -10,6 +10,14 @@ absorbs the digest into the live sponge.  With a ``challenge`` [L] int32
 output too it writes ``digest mod p`` in Montgomery form.  ``state``, ``buf``
 and ``pos`` are updated in place, so the rounds of a fused prover chain on
 the device with no copy to the host.
+
+K7 ``sponge_round`` (the round form): a fused prover round's transcript step
+in one launch.  It takes the round's ``w`` Montgomery elements ``mont``
+[w, 16], writes their plain form to ``slot`` [w, 16], packs them into 32 w
+bytes (big-endian elements, :func:`pack_bytes_be`, for the basic sumcheck's
+rounds; little-endian, :func:`pack_bytes_le`, for the GKR rounds), absorbs
+them and squeezes into ``digest`` and ``challenge``: ``from_mont`` (K1),
+the pack and ``sponge_step`` in one kernel.
 
 It is the counterpart of ``tpu_zk/transcript/device_fs.py``'s sponge
 (``keccak_f1600_device`` :79, ``absorb_dyn`` :314, ``squeeze_dyn`` :341,
@@ -25,10 +33,13 @@ uint32 or uint64 arithmetic, and its ``>>`` on int64 is arithmetic, so every
 half stays in [0, 2^32): left shifts are masked and NOT is an XOR with
 2^32 - 1).
 
-The wrapper runs the plain version when its tensors lie on the CPU, and for
-CUDA tensors launches the kernel (built by :mod:`tpu_zk_torch._build` at
-first use) or raises.  It keeps a count of its kernel launches in its
-``launches`` attribute.
+Each wrapper runs its plain version when its tensors lie on the CPU, and
+for CUDA tensors launches the kernel (built by :mod:`tpu_zk_torch._build` at
+first use) or raises.  Each keeps a count of its kernel launches in its
+``launches`` attribute.  A fused prove launches one a round, so the
+wrappers check their tensors with attribute reads only and hand the kernel
+plain integers (ctypes converts them by the argument types ``_build``
+sets).
 """
 
 from __future__ import annotations
@@ -41,7 +52,8 @@ import torch
 from .. import _build
 from ..fields import kernels as field_kernels
 from ..fields.arith import FieldCtx
-from ..fields.kernels import _launch, _launch_args, _on_cpu, _ptr, _raise_on
+from ..fields.kernels import _device_index, _launch, _launch_args, _ptr, _raise_on
+from ..utils import counters
 from .keccak import _RC, _ROT, RATE
 
 _M32 = 0xFFFFFFFF
@@ -128,12 +140,16 @@ def _absorb_plain(A: torch.Tensor, tail: torch.Tensor, data: torch.Tensor):
     return A, stream[full * RATE :]
 
 
+def _check_digest_field(ctx: FieldCtx) -> None:
+    if ctx.L * 16 != 256:
+        raise ValueError(f"{ctx.name}: a 32-byte digest is not reduced to {ctx.L} limbs (needs L * 16 = 256)")
+
+
 def digest_limbs(ctx: FieldCtx, digest: torch.Tensor) -> torch.Tensor:
     """[32] uint8 little-endian digest -> its [L] 16-bit limbs (a value below
     2^256 = R, not reduced mod p); a field whose limbs do not span 256 bits
     raises."""
-    if ctx.L * 16 != 256:
-        raise ValueError(f"{ctx.name}: a 32-byte digest is not reduced to {ctx.L} limbs (needs L * 16 = 256)")
+    _check_digest_field(ctx)
     b = digest.to(torch.int32).view(ctx.L, 2)
     return b[:, 0] | (b[:, 1] << 8)
 
@@ -168,22 +184,48 @@ def sponge_step_plain(state, buf, pos, data, digest=None, challenge=None, ctx: F
     pos.fill_(tail.shape[0])
 
 
-def _check(state, buf, pos, data, digest, challenge, ctx) -> None:
-    for name, t, dtype, shape in (("state", state, torch.int64, (25,)), ("buf", buf, torch.uint8, (RATE,)),
-                                  ("pos", pos, torch.int32, (1,))):
-        if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f"sponge_step: {name} must be a contiguous {shape} {dtype} tensor")
-    if data.dtype != torch.uint8 or data.dim() != 1 or not data.is_contiguous():
-        raise ValueError(f"sponge_step: data must be contiguous [k] uint8, got {data.dtype} {tuple(data.shape)}")
-    if digest is not None and (digest.dtype != torch.uint8 or tuple(digest.shape) != (32,)
-                               or not digest.is_contiguous()):
-        raise ValueError("sponge_step: digest must be a contiguous [32] uint8 tensor")
-    if challenge is not None:
-        if digest is None or ctx is None:
-            raise ValueError("sponge_step: a challenge needs a digest and a field")
-        digest_limbs(ctx, digest)  # raises for a field that a digest does not span
-        if challenge.dtype != torch.int32 or tuple(challenge.shape) != (ctx.L,) or not challenge.is_contiguous():
-            raise ValueError(f"sponge_step: challenge must be a contiguous [{ctx.L}] int32 tensor")
+def pack_bytes_be(ctx: FieldCtx, plain: torch.Tensor) -> torch.Tensor:
+    """[..., L] strict plain limbs -> [... * nbytes] uint8 big-endian byte
+    stream (arkworks ``to_bytes_be``, the basic round and the claims)."""
+    if ctx.L * 2 != ctx.nbytes:
+        raise ValueError(f"{ctx.name}: {ctx.L} limbs do not serialize to {ctx.nbytes} bytes")
+    rev = plain.flip(-1)
+    return torch.stack([(rev >> 8) & 0xFF, rev & 0xFF], dim=-1).reshape(-1).to(torch.uint8)
+
+
+def pack_bytes_le(ctx: FieldCtx, plain: torch.Tensor) -> torch.Tensor:
+    """[..., L] strict plain limbs -> [... * nbytes] uint8 little-endian byte
+    stream (the GKR round univariates, ``sumcheck_gkr_protocol.rs:145-150``)."""
+    if ctx.L * 2 != ctx.nbytes:
+        raise ValueError(f"{ctx.name}: {ctx.L} limbs do not serialize to {ctx.nbytes} bytes")
+    return torch.stack([plain & 0xFF, (plain >> 8) & 0xFF], dim=-1).reshape(-1).to(torch.uint8)
+
+
+def sponge_round_plain(state, buf, pos, mont, slot, digest, challenge, ctx: FieldCtx, big_endian: bool) -> None:
+    """K7's round form on tensors of any device, in place: ``from_mont``'s
+    product by 1 (K1's plain version) into ``slot``, the byte pack, then
+    :func:`sponge_step_plain`."""
+    slot.copy_(field_kernels.mont_mul_plain(ctx, mont, ctx.limbs(1, mont.device)))
+    data = (pack_bytes_be if big_endian else pack_bytes_le)(ctx, slot)
+    sponge_step_plain(state, buf, pos, data, digest, challenge, ctx)
+
+
+ROUND_MAX_ELEMENTS = 128  # csrc/sponge.cu stages a round's 32-byte elements in one 4096-byte chunk
+
+
+def _is(t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> bool:
+    return t.dtype == dtype and t.shape == shape and t.is_contiguous()
+
+
+def _bad(what: str, msg: str, *tensors) -> ValueError:
+    shapes = ", ".join(f"{t.dtype} {tuple(t.shape)}{'' if t.is_contiguous() else ' strided'}" for t in tensors)
+    return ValueError(f"{what}: {msg}; got {shapes}")
+
+
+def _check_sponge(what: str, state, buf, pos) -> None:
+    if not (_is(state, torch.int64, (25,)) and _is(buf, torch.uint8, (RATE,)) and _is(pos, torch.int32, (1,))):
+        raise _bad(what, f"state, buf and pos must be contiguous (25,) int64, ({RATE},) uint8 and (1,) int32",
+                   state, buf, pos)
 
 
 @functools.lru_cache(maxsize=None)
@@ -198,30 +240,70 @@ def _field_args(ctx: FieldCtx):
 def sponge_step(state: torch.Tensor, buf: torch.Tensor, pos: torch.Tensor, data: torch.Tensor,
                 digest: torch.Tensor | None = None, challenge: torch.Tensor | None = None,
                 ctx: FieldCtx | None = None) -> None:
-    """K7: absorb ``data`` into the sponge (state, buf, pos), and squeeze into
-    ``digest`` (and ``challenge``, Montgomery limbs of ``ctx``) when given;
-    everything in place.  ``buf`` must be zero from ``pos`` on, as every
-    sponge made by :mod:`.device_fs` is."""
-    _check(state, buf, pos, data, digest, challenge, ctx)
-    tensors = [t for t in (state, buf, pos, data, digest, challenge) if t is not None]
-    if _on_cpu(*tensors):
+    """K7, the byte form: absorb ``data`` into the sponge (state, buf, pos),
+    and squeeze into ``digest`` (and ``challenge``, Montgomery limbs of
+    ``ctx``) when given; everything in place.  ``buf`` must be zero from
+    ``pos`` on, as every sponge made by :mod:`.device_fs` is."""
+    what = "sponge_step"
+    _check_sponge(what, state, buf, pos)
+    if not (data.dtype == torch.uint8 and data.dim() == 1 and data.is_contiguous()):
+        raise _bad(what, "data must be contiguous [k] uint8", data)
+    tensors = (state, buf, pos, data)
+    if digest is not None:
+        if not _is(digest, torch.uint8, (32,)):
+            raise _bad(what, "digest must be a contiguous [32] uint8 tensor", digest)
+        tensors += (digest,)
+    if challenge is not None:
+        if digest is None or ctx is None:
+            raise ValueError(f"{what}: a challenge needs a digest and a field")
+        _check_digest_field(ctx)
+        if not _is(challenge, torch.int32, (ctx.L,)):
+            raise _bad(what, f"challenge must be a contiguous [{ctx.L}] int32 tensor", challenge)
+        tensors += (challenge,)
+    index = _device_index(*tensors)
+    if index < 0:
         sponge_step_plain(state, buf, pos, data, digest, challenge, ctx)
         return
-    if state.data_ptr() % 8 or buf.data_ptr() % 8:
-        raise ValueError("sponge_step: state and buf must be 8-byte aligned")
-    if challenge is not None:
-        p32, n0inv, r2 = _field_args(ctx)
-        chal = _ptr(challenge)
-    else:
-        p32, n0inv, r2, chal = None, ctypes.c_uint32(0), None, None
-    rc = _launch(
-        _build.kernel_library().tzk_sponge_step, state.device,
-        ctypes.c_void_p(state.data_ptr()), ctypes.c_void_p(buf.data_ptr()), ctypes.c_void_p(pos.data_ptr()),
-        ctypes.c_void_p(data.data_ptr()), ctypes.c_int64(data.shape[0]),
-        ctypes.c_void_p(digest.data_ptr()) if digest is not None else None, chal,
-        ctypes.c_int(ctx.L if ctx is not None else 0), p32, n0inv, r2)
-    _raise_on(rc, "sponge_step")
+    p32, n0inv, r2 = _field_args(ctx) if challenge is not None else (None, 0, None)
+    rc = _launch(_build.kernel_library().tzk_sponge_step, index, _ptr(state, 8), _ptr(buf, 8), pos.data_ptr(),
+                 data.data_ptr(), data.shape[0], None if digest is None else digest.data_ptr(),
+                 None if challenge is None else _ptr(challenge), 0 if ctx is None else ctx.L, p32, n0inv, r2)
+    _raise_on(rc, what)
     sponge_step.launches += 1
 
 
 sponge_step.launches = 0
+
+
+def sponge_round(state: torch.Tensor, buf: torch.Tensor, pos: torch.Tensor, mont: torch.Tensor,
+                 slot: torch.Tensor, digest: torch.Tensor, challenge: torch.Tensor, ctx: FieldCtx,
+                 big_endian: bool) -> None:
+    """K7, the round form: a round's ``w`` Montgomery elements ``mont``
+    [w, 16] -> their plain limbs in ``slot`` [w, 16], absorbed as 32 w bytes
+    (big- or little-endian elements) into the sponge (state, buf, pos), then
+    squeezed into ``digest`` [32] uint8 and ``challenge`` [16] (Montgomery);
+    everything in place.  Fields of 16 limbs only.  Counts ``from_mont``'s w
+    products in :mod:`tpu_zk_torch.utils.counters`, as ``arith.from_mont``
+    would."""
+    what = "sponge_round"
+    _check_sponge(what, state, buf, pos)
+    _check_digest_field(ctx)
+    L = ctx.L
+    w = mont.shape[0] if mont.dim() == 2 else 0
+    if not (1 <= w <= ROUND_MAX_ELEMENTS and _is(mont, torch.int32, (w, L)) and _is(slot, torch.int32, (w, L))
+            and _is(digest, torch.uint8, (32,)) and _is(challenge, torch.int32, (L,))):
+        raise _bad(what, f"mont and slot must be contiguous [w, {L}] int32 with 1 <= w <= {ROUND_MAX_ELEMENTS}, "
+                   f"digest [32] uint8 and challenge [{L}] int32", mont, slot, digest, challenge)
+    index = _device_index(state, buf, pos, mont, slot, digest, challenge)
+    counters.bump(ctx.name, "mul", mont)
+    if index < 0:
+        sponge_round_plain(state, buf, pos, mont, slot, digest, challenge, ctx, big_endian)
+        return
+    p32, n0inv, r2 = _field_args(ctx)
+    rc = _launch(_build.kernel_library().tzk_sponge_round, index, _ptr(state, 8), _ptr(buf, 8), pos.data_ptr(),
+                 _ptr(mont), w, int(big_endian), _ptr(slot), digest.data_ptr(), _ptr(challenge), p32, n0inv, r2)
+    _raise_on(rc, what)
+    sponge_round.launches += 1
+
+
+sponge_round.launches = 0
