@@ -98,7 +98,10 @@ Phases, in order; any failure raises and the exit code is nonzero:
    parameters), first call and warm, K5's Merkle levels round by round,
    then under the stage timers; tampered
    final codeword, query value and Merkle sibling fail, and so do random
-   evaluations; K5 and K6 must launch;
+   evaluations; K5 and K6 must launch, and K7 (the commit rounds' device
+   sponge) exactly once a round; a warm prove's host syncs counted by
+   place, each commit round under the sync debug mode "error", and none
+   may lie in ``fri.prove``'s commit loop;
 21. K6 over the three passes of a 2^24 forward and K5 over a 2^24-leaf tree,
    beside their plain versions and bounds (multiply-adds and 32-bit
    logic/shift ops at the rates probed in phase 2): K6's time a pass, the
@@ -184,6 +187,7 @@ import argparse
 import collections
 import contextlib
 import hashlib
+import inspect
 import json
 import os
 import subprocess
@@ -252,11 +256,11 @@ def count_syncs(fn):
     return out, places
 
 
-def sync_report(fused: collections.Counter, host: collections.Counter) -> dict:
-    """The host syncs of a fused and of a host-synced prove: their totals,
-    and each place that synced with its count, most first."""
-    return {"host_syncs_a_prove": {"fused": fused.total(), "host_synced": host.total()},
-            "host_sync_places": {"fused": dict(fused.most_common()), "host_synced": dict(host.most_common())}}
+def sync_report(**runs: collections.Counter) -> dict:
+    """The host syncs of each prove given (``fused=``, ``host_synced=``, ...):
+    their totals, and each place that synced with its count, most first."""
+    return {"host_syncs_a_prove": {what: c.total() for what, c in runs.items()},
+            "host_sync_places": {what: dict(c.most_common()) for what, c in runs.items()}}
 
 
 def rand_canonical(ctx, shape, gen, device):
@@ -527,14 +531,12 @@ def read_launches() -> dict:
 
 
 @contextlib.contextmanager
-def sync_error_in_fused_rounds(name: str):
-    """Every call of the fused round loop ``sumcheck.fused.<name>`` runs under
-    torch.cuda.set_sync_debug_mode("error"), so a host sync inside it
-    raises; the mode before it comes back after each call (a "warn" count
-    around the prove goes on outside the loops)."""
-    from tpu_zk_torch.sumcheck import fused
-
-    saved = getattr(fused, name)
+def sync_error_in(owner, name: str):
+    """Every call of ``owner.<name>`` (a fused round loop, a FRI commit round)
+    runs under torch.cuda.set_sync_debug_mode("error"), so a host sync
+    inside it raises; the mode before it comes back after each call (a
+    "warn" count around the prove goes on outside)."""
+    saved = getattr(owner, name)
 
     def strict(*args):
         before = torch.cuda.get_sync_debug_mode()
@@ -544,11 +546,11 @@ def sync_error_in_fused_rounds(name: str):
         finally:
             torch.cuda.set_sync_debug_mode(before)
 
-    setattr(fused, name, strict)
+    setattr(owner, name, strict)
     try:
         yield
     finally:
-        setattr(fused, name, saved)
+        setattr(owner, name, saved)
 
 
 def same_sumcheck_proofs(a, b) -> bool:
@@ -562,6 +564,7 @@ def main_path(device, rng, log_n: int) -> dict:
     from tpu_zk_torch.fields import arith
     from tpu_zk_torch.fields.arith import field_ctx
     from tpu_zk_torch.poly.multilinear import MultilinearPolynomial
+    from tpu_zk_torch.sumcheck import fused
     from tpu_zk_torch.sumcheck.basic import Prover, Verifier
 
     ctx = field_ctx("bn254_fr")
@@ -598,7 +601,7 @@ def main_path(device, rng, log_n: int) -> dict:
     if prover.transcript.sample_random_challenge() != host_prover.transcript.sample_random_challenge():
         raise AssertionError(f"2^{log_n}: the transcripts after the fused and host-synced proofs differ")
 
-    with sync_error_in_fused_rounds("fused_basic_prove"):  # a host sync in a warm fused round loop raises
+    with sync_error_in(fused, "fused_basic_prove"):  # a host sync in a warm fused round loop raises
         warm_proof, t_prove_warm = sync_time(lambda: Prover(poly).prove())
     ok, t_verify_warm = sync_time(lambda: Verifier.init().verify(warm_proof))
     if not ok or not same_sumcheck_proofs(proof, warm_proof):
@@ -617,7 +620,7 @@ def main_path(device, rng, log_n: int) -> dict:
         "prove_warm_s": t_prove_warm, "verify_warm_s": t_verify_warm, "launches": launches,
         "k7_launches_a_prove": k7_prove, "host_synced_prove_first_s": t_host_first,
         "host_synced_prove_warm_s": t_host_warm, "warm_round_loop_ran_under_sync_error_mode": True,
-        **sync_report(syncs_fused, syncs_host),
+        **sync_report(fused=syncs_fused, host_synced=syncs_host),
         "prove_counting_syncs_s": {"fused": t_fused_counted, "host_synced": t_host_counted},
         "round_form": round_form,
     }
@@ -633,6 +636,7 @@ def gkr_main_path(device, rng, depth: int) -> dict:
     from tpu_zk_torch.fields import arith
     from tpu_zk_torch.fields.arith import field_ctx
     from tpu_zk_torch.gkr import sparse
+    from tpu_zk_torch.sumcheck import fused
     from tpu_zk_torch.utils.serialize import gkr_proof_to_json
 
     ctx = field_ctx("bn254_fr")
@@ -670,7 +674,7 @@ def gkr_main_path(device, rng, depth: int) -> dict:
         raise AssertionError(f"GKR depth {depth} proof with a tampered round coefficient verifies")
 
     _, t_eval_warm = sync_time(lambda: circuit.evaluate(table, materialize=False))
-    with sync_error_in_fused_rounds("fused_gkr_sumcheck_prove"):  # a host sync in a warm fused phase raises
+    with sync_error_in(fused, "fused_gkr_sumcheck_prove"):  # a host sync in a warm fused phase raises
         (warm_proof, syncs_fused), t_prove_warm = sync_time(lambda: count_syncs(lambda: sparse.prove(circuit, table)))
     ok, t_verify_warm = sync_time(lambda: sparse.verify(circuit, warm_proof, table))
     if not ok:
@@ -691,7 +695,7 @@ def gkr_main_path(device, rng, depth: int) -> dict:
         "prove_warm_s": t_prove_warm, "verify_warm_s": t_verify_warm,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
         "host_synced_prove_s": t_host, "warm_phases_ran_under_sync_error_mode": True,
-        **sync_report(syncs_fused, syncs_host), "round_form": round_form,
+        **sync_report(fused=syncs_fused, host_synced=syncs_host), "round_form": round_form,
     }
     log(f"GKR main path depth {depth} bn254_fr: " + json.dumps(out))
     return out
@@ -1318,7 +1322,7 @@ def succinct_main_path(device, rng, setup, setup_times: dict) -> dict:
         "depth": depth, "gates": (1 << depth) - 1, **setup_times, "prove_first_s": t_prove, "to_json_s": t_json,
         "proof_json_bytes": len(proof_json), "verify_first_s": t_verify, "prove_warm_s": t_prove_warm,
         "verify_warm_s": t_verify_warm, "peak_mem_gib": peak, "launches": launches,
-        "host_synced_prove_s": t_host, **sync_report(syncs_fused, syncs_host),
+        "host_synced_prove_s": t_host, **sync_report(fused=syncs_fused, host_synced=syncs_host),
         "round_form": round_form,
         "prove_with_timers_s": t_prove_timers, "prove_whole_s": breakdown.whole_s(prove_each), "prove_stages_s": prove_stages,
         "prove_stage_calls": prove_calls,
@@ -1393,8 +1397,8 @@ def kernels_line(times: dict, launches: dict, k4_small: dict, k4_main: dict, k56
     one 2^24 forward transform.  K7, a row a form (one kernel, two entry points): time per launch at a GKR
     round's step through the wrapper, with its arguments made once beside it, a basic round's beside them,
     its plain version on the CPU, its bound without and with the launch probe's time.  ``launches`` is the depth-24 succinct path's count for K1-K4 and K7's round form,
-    phase 24's sharded FRI's for K7's byte form (which the fused rounds no longer launch), and the 2^24
-    NTT -> FRI path's for K5 and K6;
+    and the 2^24 NTT -> FRI path's for K5, K6 and K7's byte form (its commit rounds; the fused rounds no
+    longer launch it);
     every path's count is beside it, phase 22's dense, dense succinct and
     interactive paths among them.  No PyTorch call computes any of these
     functions, so ``library_ms`` is null."""
@@ -1460,7 +1464,7 @@ def kernels_line(times: dict, launches: dict, k4_small: dict, k4_main: dict, k56
     rows.append({"name": "sponge_step", **k7_common,
                  "replaces": "tpu_zk/transcript/device_fs.py:79, tpu_zk/transcript/device_fs.py:314, "
                              "tpu_zk/transcript/device_fs.py:341, tpu_zk/transcript/device_fs.py:356",
-                 "launches": launches["sharded_fri"]["sponge_step"], "launches_from": "sharded_fri",
+                 "launches": launches["fri"]["sponge_step"], "launches_from": "fri",
                  "launches_by_path": {p: n["sponge_step"] for p, n in launches.items()},
                  "max_abs_err": k7["max_abs_err"], "ms": gkr_round["ms"], "plain_ms": gkr_round["plain_ms"],
                  "raw_launch_ms": gkr_round["raw_launch_ms"],
@@ -1710,6 +1714,7 @@ def fri_stages() -> list:
         (fri, "field_leaf_bytes", "leaf bytes (from_mont K1, byte order)"),
         (fri, "merkle_tree_flat", "Merkle levels (K5)"),
         (fri, "fold_codeword", "fold (K1, K3)"),
+        (fri, "sponge_step", "device sponge (K7)"),
         (Transcript, "append", "host transcript (absorb)"),
         (Transcript, "sample_random_challenge", "host transcript (squeeze)"),
         (fri, "_gather_openings", "query gathers and copy"),
@@ -1771,11 +1776,27 @@ def _tampered(proof, how: str):
     return proof
 
 
+def commit_loop_lines() -> tuple[str, range]:
+    """(the repo-relative file, its lines) of ``fri.prove``'s commit loop:
+    the ``for`` over the rounds and its body."""
+    from tpu_zk_torch.fri import fri
+
+    lines, first = inspect.getsourcelines(fri.prove)
+    head = next(i for i, line in enumerate(lines) if line.lstrip().startswith("for r in range(config.num_rounds)"))
+    indent = len(lines[head]) - len(lines[head].lstrip())
+    end = next((i for i in range(head + 1, len(lines))
+                if lines[i].strip() and len(lines[i]) - len(lines[i].lstrip()) <= indent), len(lines))
+    root = os.path.dirname(os.path.abspath(__file__))
+    return os.path.relpath(inspect.getsourcefile(fri.prove), root), range(first + head, first + end)
+
+
 def fri_path(device, gen, log_n: int) -> dict:
     """Phase 20: NTT of a low-degree polynomial, fri.prove, fri.verify,
     first call and warm, then once under the stage timers (K5's Merkle
     levels round by round among them); tampered proofs and a high-degree
-    codeword fail; K5 and K6 must launch."""
+    codeword fail; K5, K6 and K7 must launch, K7 once a commit round.  A
+    warm prove's host syncs are counted by place, with every commit round
+    under the sync debug mode "error": none may lie in the commit loop."""
     from tpu_zk_torch.fields.arith import field_ctx
     from tpu_zk_torch.fri import fri
     from tpu_zk_torch.gkr import breakdown
@@ -1794,9 +1815,12 @@ def fri_path(device, gen, log_n: int) -> dict:
         raise AssertionError(f"FRI 2^{log_n}: the proof does not verify")
     if len(proof.roots) != cfg.num_rounds or len(proof.queries) != 20 or len(proof.final_codeword) != 16:
         raise AssertionError(f"FRI 2^{log_n}: wrong number of rounds, queries or final values")
-    for name in ("dif_pass", "keccak_rows", "mont_mul", "addsub"):
+    for name in ("dif_pass", "keccak_rows", "mont_mul", "addsub", "sponge_step"):
         if launches[name] == 0:
             raise AssertionError(f"FRI path at 2^{log_n} never launched kernel {name}: {launches}")
+    if launches["sponge_step"] != cfg.num_rounds:
+        raise AssertionError(f"FRI 2^{log_n}: the prove launched K7 {launches['sponge_step']} times, not once a "
+                             f"commit round ({cfg.num_rounds})")
     for how in ("final codeword", "query value", "Merkle sibling"):
         if fri.verify(cfg, _tampered(proof, how), Transcript()):
             raise AssertionError(f"FRI 2^{log_n}: a proof with a tampered {how} verifies")
@@ -1805,6 +1829,20 @@ def fri_path(device, gen, log_n: int) -> dict:
     if not ok or warm != proof:
         raise AssertionError(f"FRI 2^{log_n}: the warm proof differs or does not verify")
     del warm
+    reset_launches()
+    with sync_error_in(fri, "_commit_round"):  # a host sync inside a commit round raises
+        (counted, syncs), t_prove_counted = sync_time(lambda: count_syncs(lambda: fri.prove(cfg, codeword, Transcript())))
+    k7_counted = read_launches()["sponge_step"]
+    if counted != proof or k7_counted != cfg.num_rounds:
+        raise AssertionError(f"FRI 2^{log_n}: the prove counting syncs differs, or launched K7 {k7_counted} times "
+                             f"for {cfg.num_rounds} commit rounds")
+    del counted
+    loop_file, loop_lines = commit_loop_lines()
+    in_loop = {place: n for place, n in syncs.items()
+               if place.rpartition(":")[0] == loop_file and int(place.rpartition(":")[2]) in loop_lines}
+    if in_loop:
+        raise AssertionError(f"FRI 2^{log_n}: host syncs inside the commit loop ({loop_file}:{loop_lines.start}-"
+                             f"{loop_lines.stop - 1}): {in_loop}")
     if log_n == max(FRI_LOG_NS):  # phase 24's one-device reference, on the host
         ONE_DEVICE["fri"] = {"codeword": codeword.cpu(), "proof": proof, "warm_s": t_prove_warm}
     noise = rand_canonical(ctx, (1 << log_n,), gen, device)  # random evaluations: degree far above 2^(log_n - 2)
@@ -1816,11 +1854,13 @@ def fri_path(device, gen, log_n: int) -> dict:
         device, fri_stages()))
     out = {"log_n": log_n, "rounds": cfg.num_rounds, "ntt_s": t_ntt, "prove_first_s": t_prove,
            "verify_first_s": t_verify, "prove_warm_s": t_prove_warm, "verify_warm_s": t_verify_warm,
-           "peak_mem_gib": peak, "launches": launches, "ntt_prove_verify_with_timers_s": t_timed,
-           "stages_s": stages, "stage_calls": calls,
+           "peak_mem_gib": peak, "launches": launches, "k7_launches_a_prove": k7_counted,
+           "prove_counting_syncs_s": t_prove_counted, **sync_report(prove=syncs),
+           "commit_loop": f"{loop_file}:{loop_lines.start}-{loop_lines.stop - 1}",
+           "ntt_prove_verify_with_timers_s": t_timed, "stages_s": stages, "stage_calls": calls,
            "merkle_levels_s_by_round": each["Merkle levels (K5)"]}
     log(f"FRI path bn254_fr 2^{log_n}: " + json.dumps(out) + "; tampered final codeword, query value and Merkle "
-        "sibling rejected; random evaluations rejected")
+        "sibling rejected; random evaluations rejected; no host sync in the commit loop")
     return out
 
 
@@ -2093,7 +2133,7 @@ def dense_path(device, rng, seed: int) -> dict:
         "depth": depth, "gates": (1 << depth) - 1, "evaluate_first_s": t_eval, "prove_first_s": t_prove,
         "verify_first_s": t_verify, "evaluate_warm_s": t_eval_warm, "prove_warm_s": t_prove_warm,
         "verify_warm_s": t_verify_warm, "peak_mem_gib": peak, "launches": launches,
-        "host_synced_prove_s": t_host, **sync_report(syncs_fused, syncs_host),
+        "host_synced_prove_s": t_host, **sync_report(fused=syncs_fused, host_synced=syncs_host),
         "proof_json_bytes": len(dense_json), "prove_with_timers_s": t_prove_timers, "prove_stages_s": prove_stages,
         "prove_stage_calls": prove_calls, "verify_with_timers_s": t_verify_timers, "verify_stages_s": verify_stages,
         "verify_stage_calls": verify_calls, "round_form": round_form,

@@ -8,7 +8,11 @@ and ``keccak_fixed_batch`` (on the CPU the XLA lane path
 ``merkle_field_tree`` levels and ``MerkleTree`` roots and paths; and whole
 ``FriProof``s (roots, final codeword, every query's index, values and
 paths) for a BN254 Fr domain of 2^8 and a BLS12-381 Fr domain of 2^6
-(four and two rounds, final size 2^4).  Each package verifies the
+(four and two rounds, final size 2^4), and the transcript each prove
+leaves behind (next challenge), from a fresh transcript and from one with an
+unabsorbed tail, and from a config of no commit round.  The commit phase
+absorbs every root on the device sponge (K7's byte form, once a round) and
+the host transcript only the final codeword.  Each package verifies the
 other's proof and rejects it tampered.  On the CPU the port runs its
 kernels' plain versions; everything is integer or byte arithmetic, so every
 comparison is exact (tolerance zero).
@@ -49,6 +53,8 @@ TREE_LEAVES = 64
 # (field, domain_log2, final_size_log2, num_queries); blowup 4 throughout
 FRI_CASES = {"bn254_fr 2^8": ("bn254_fr", 8, 4, 10), "bls12_381_fr 2^6": ("bls12_381_fr", 6, 4, 8)}
 TAMPERS = ["none", "final codeword", "query value", "merkle sibling"]
+SEED = bytes(range(77))  # absorbed before a prove: the sponge starts with a 77-byte tail
+ZERO_ROUNDS = ("bn254_fr", 4, 4, 6)  # final size = domain: no commit round
 
 
 def _rows(w: int) -> np.ndarray:
@@ -65,6 +71,11 @@ def _codeword_coeffs(case: str) -> list[int]:
     field, dlog, _, _ = FRI_CASES[case]
     p = jarith.field_ctx(field).p
     return _field_values(p, 1 << (dlog - 2), dlog) + [0] * ((1 << dlog) - (1 << (dlog - 2)))
+
+
+def _zero_round_values() -> list[int]:
+    field, dlog, _, _ = ZERO_ROUNDS
+    return _field_values(jarith.field_ctx(field).p, 1 << dlog, 11)
 
 
 def _tamper(proof, how: str):
@@ -97,12 +108,15 @@ def _from_tuples(data: dict, module):
 def reference(port_proofs: dict) -> dict:
     """Everything the tests compare against, computed by tpu_zk (in the
     child process): Keccak digests of the rows, a field-leaf tree's levels,
-    a byte-leaf tree's root and paths, per FRI case the codeword, the proof
-    and the verdicts on the port's proof as is and tampered."""
+    a byte-leaf tree's root and paths, per FRI case the codeword, the proof,
+    the next challenge after it, the proof and next challenge from a
+    transcript that absorbed SEED, and the verdicts on the port's proof as is
+    and tampered; and the transcript of a config of no commit round."""
     import jax.numpy as jnp
 
     from tpu_zk.merkle.device_merkle import field_leaf_bytes, keccak_fixed_batch, merkle_field_tree
     from tpu_zk.ntt.ntt import NTT as JNTT
+    from tpu_zk.transcript.device_fs import DeviceSponge as JDeviceSponge
     from tpu_zk.transcript.fiat_shamir import Transcript as JTranscript
 
     out = {"batch": {}, "fixed": {}}
@@ -121,32 +135,85 @@ def reference(port_proofs: dict) -> dict:
         cfg = jfri.FriConfig(field, dlog, final_log, queries)
         jctx = cfg.ctx
         codeword = JNTT(field, dlog, cfg.root).forward(jctx.array(_codeword_coeffs(case)))
-        proof = jfri.prove(cfg, codeword, JTranscript())
+        transcript, seeded = JTranscript(), JTranscript()
+        proof = jfri.prove(cfg, codeword, transcript)
+        seeded.append(SEED)
+        seeded_proof = jfri.prove(cfg, codeword, seeded)  # the same round sizes: nothing new to compile
         out["fri"][case] = {
             "codeword": np.asarray(codeword),
             "proof": _as_tuples(proof),
+            "next_challenge": transcript.sample_random_challenge(),
+            "seeded": {"proof": _as_tuples(seeded_proof), "next_challenge": seeded.sample_random_challenge()},
             "verifies_own": jfri.verify(cfg, proof, JTranscript()),
             "port_verdicts": [jfri.verify(cfg, _tamper(_from_tuples(port_proofs[case], jfri), how), JTranscript())
                               for how in TAMPERS],
         }
+
+    # tpu_zk's prove stops at zero rounds (it stacks no roots): its transcript is made by the steps of its
+    # prove around the commit loop, the sponge's hand-back (fri.py:179-193) and the final codeword's absorbs,
+    # then the query phase's sampling
+    field, dlog, _, queries = ZERO_ROUNDS
+    jctx, transcript = jarith.field_ctx(field), JTranscript()
+    transcript.append(SEED)
+    sponge = JDeviceSponge.from_host(transcript._hasher)
+    transcript._hasher = JDeviceSponge(None, None, sponge.pos).to_host(np.asarray(sponge.state), np.asarray(sponge.buf))
+    for v in _zero_round_values():
+        transcript.append(jctx.to_bytes_be(v))
+    out["zero_rounds"] = {"indices": jfri._query_indices(transcript, queries, 1 << (dlog - 1)),
+                          "next_challenge": transcript.sample_random_challenge()}
     return out
 
 
 @pytest.fixture(scope="module")
 def port_fri():
-    """case -> (config, codeword, proof) made by the port."""
+    """case -> (config, codeword, proof, the transcript's next challenge
+    after it) made by the port."""
     out = {}
     for case, (field, dlog, final_log, queries) in FRI_CASES.items():
         cfg = fri.FriConfig(field, dlog, final_log, queries)
         codeword = NTT(field, dlog, root=cfg.root).forward(cfg.ctx.array(_codeword_coeffs(case)))
-        out[case] = cfg, codeword, fri.prove(cfg, codeword, Transcript())
+        transcript = Transcript()
+        proof = fri.prove(cfg, codeword, transcript)
+        out[case] = cfg, codeword, proof, transcript.sample_random_challenge()
     return out
+
+
+def _spied_prove(cfg, codeword) -> dict:
+    """fri.prove from a transcript that absorbed SEED, with spies on K7's
+    wrapper (the bytes each call absorbs) and on the host transcript's
+    absorbs: the proof, the next challenge, and what each spy saw."""
+    steps, appended = [], []
+    real_step, real_append = fri.sponge_step, Transcript.append
+
+    def step(state, buf, pos, data, *rest):
+        steps.append(data.numpy().tobytes())
+        return real_step(state, buf, pos, data, *rest)
+
+    def append(self, data):
+        appended.append(bytes(data))
+        return real_append(self, data)
+
+    transcript = Transcript()
+    transcript.append(SEED)
+    fri.sponge_step, Transcript.append = step, append
+    try:
+        proof = fri.prove(cfg, codeword, transcript)
+    finally:
+        fri.sponge_step, Transcript.append = real_step, real_append
+    return {"proof": proof, "next_challenge": transcript.sample_random_challenge(), "steps": steps,
+            "appended": appended}
+
+
+@pytest.fixture(scope="module")
+def port_seeded(port_fri):
+    """case -> :func:`_spied_prove` of the case's config and codeword."""
+    return {case: _spied_prove(cfg, codeword) for case, (cfg, codeword, _, _) in port_fri.items()}
 
 
 @pytest.fixture(scope="module")
 def ref(port_fri):
     return jax_reference.call("tests.test_torch_merkle_fri", "reference",
-                              {case: _as_tuples(proof) for case, (_, _, proof) in port_fri.items()})
+                              {case: _as_tuples(proof) for case, (_, _, proof, _) in port_fri.items()})
 
 
 @pytest.mark.parametrize("w", WIDTHS)
@@ -225,6 +292,47 @@ def test_fri_proof_equals_tpu_zk(case, port_fri, ref):
 
 
 @pytest.mark.parametrize("case", list(FRI_CASES))
+def test_fri_leaves_the_transcript_of_tpu_zk(case, port_fri, port_seeded, ref):
+    """After the prove, the port's transcript and tpu_zk's give the same
+    next challenge: from a fresh transcript, and from one with a tail (the
+    proof is the same there too)."""
+    want = ref["fri"][case]
+    assert port_fri[case][3] == want["next_challenge"]
+    assert _as_tuples(port_seeded[case]["proof"]) == want["seeded"]["proof"]
+    assert port_seeded[case]["next_challenge"] == want["seeded"]["next_challenge"]
+
+
+@pytest.mark.parametrize("case", list(FRI_CASES))
+def test_fri_commit_absorbs_each_root_in_one_sponge_step(case, port_fri, port_seeded):
+    """K7's wrapper is called once a commit round, on the round's root."""
+    cfg, seeded = port_fri[case][0], port_seeded[case]
+    assert len(seeded["steps"]) == cfg.num_rounds
+    assert seeded["steps"] == seeded["proof"].roots
+
+
+@pytest.mark.parametrize("case", list(FRI_CASES))
+def test_fri_host_transcript_absorbs_only_the_final_codeword(case, port_fri, port_seeded):
+    """The roots no longer pass through the host transcript."""
+    ctx, seeded = port_fri[case][0].ctx, port_seeded[case]
+    assert seeded["appended"] == [ctx.to_bytes_be(v) for v in seeded["proof"].final_codeword]
+
+
+def test_fri_zero_rounds_leave_the_transcript_as_tpu_zk_does(ref):
+    """No commit round: no K7 call, the transcript unchanged by the commit
+    phase, the whole codeword sent in clear, the same query indices and next
+    challenge as tpu_zk's transcript."""
+    field, dlog, final_log, queries = ZERO_ROUNDS
+    cfg = fri.FriConfig(field, dlog, final_log, queries)
+    assert cfg.num_rounds == 0
+    got, want = _spied_prove(cfg, cfg.ctx.array(_zero_round_values())), ref["zero_rounds"]
+    assert got["steps"] == []
+    assert got["proof"].roots == [] and got["proof"].final_codeword == _zero_round_values()
+    assert got["appended"] == [cfg.ctx.to_bytes_be(v) for v in _zero_round_values()]
+    assert got["proof"].queries == [[] for _ in want["indices"]]
+    assert got["next_challenge"] == want["next_challenge"]
+
+
+@pytest.mark.parametrize("case", list(FRI_CASES))
 def test_port_fri_proof_verifies_in_tpu_zk(case, ref):
     """tpu_zk accepts the port's proof and rejects each tampered copy."""
     assert ref["fri"][case]["port_verdicts"] == [True, False, False, False]
@@ -240,7 +348,7 @@ def test_tpu_zk_fri_proof_verifies_in_port(case, how, port_fri, ref):
 
 @pytest.mark.parametrize("how", TAMPERS[1:])
 def test_port_rejects_its_own_tampered_proof(how, port_fri):
-    cfg, _, proof = port_fri["bn254_fr 2^8"]
+    cfg, _, proof, _ = port_fri["bn254_fr 2^8"]
     assert fri.verify(cfg, proof, Transcript())
     assert not fri.verify(cfg, _tamper(proof, how), Transcript())
 
@@ -254,7 +362,7 @@ def test_fri_rejects_high_degree():
 
 
 def test_fri_rejects_wrong_shapes(port_fri):
-    cfg, _, proof = port_fri["bn254_fr 2^8"]
+    cfg, _, proof, _ = port_fri["bn254_fr 2^8"]
     short = _tamper(proof, "none")
     short.roots = short.roots[:-1]
     assert not fri.verify(cfg, short, Transcript())
@@ -321,6 +429,6 @@ def test_fri_stage_timers_cover_every_stage():
     assert ok
     names = [stage for _, _, stage in chip_smoke.fri_stages()]
     assert sorted(calls) == sorted(names)
-    assert calls["Merkle levels (K5)"] == calls["fold (K1, K3)"] == cfg.num_rounds
+    assert calls["Merkle levels (K5)"] == calls["fold (K1, K3)"] == calls["device sponge (K7)"] == cfg.num_rounds
     assert len(each["Merkle levels (K5)"]) == cfg.num_rounds  # the tree of each round, timed apart
     assert all(seconds >= 0 for seconds in stages.values())

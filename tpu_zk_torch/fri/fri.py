@@ -11,13 +11,16 @@ halving the domain, until ``final_size``; the last codeword is sent in clear.
 Query phase: indices drawn from the transcript; per round the prover opens
 (i, i + N/2) with Merkle paths and the verifier recomputes the fold chain.
 
-On the card: the leaf bytes (``from_mont`` through K1), every Merkle level
-(K5), the fold (K1, K3) and the query phase's gathers.  The transcript stays
-on the host: each round copies its 32-byte root back, absorbs it and
-uploads beta, as the port's GKR prover does.  That gives the betas of
-``tpu_zk``'s device sponge (``transcript/device_fs.py``), which exists to
-avoid TPU round trips and is not ported.  The query phase gathers every
-opened value and sibling on the card and copies them back at once.
+On the card: the whole commit phase, as in ``tpu_zk``.  Each round
+(:func:`_commit_round`) makes the leaf bytes (``from_mont`` through K1),
+every Merkle level (K5), absorbs the root and squeezes beta on the device
+sponge (:mod:`tpu_zk_torch.transcript.device_fs`, one launch of K7's byte
+form) and folds at that beta (K1, K3); the rounds chain with no copy to
+the host.
+The roots, the final codeword and the sponge then come back in one copy,
+and the host transcript continues from the sponge.  The query phase
+gathers every opened value and sibling on the card and copies them back at
+once.
 """
 
 from __future__ import annotations
@@ -32,7 +35,10 @@ from ..fields.arith import FieldCtx, field_ctx
 from ..merkle.device_merkle import field_leaf_bytes, merkle_tree_flat
 from ..merkle.merkle import verify_path
 from ..ntt.ntt import _twiddle_table, find_root_of_unity
+from ..sumcheck.fused import final_pos
+from ..transcript.device_fs import DeviceSponge
 from ..transcript.fiat_shamir import Transcript
+from ..transcript.kernels import sponge_step
 
 
 def fold_codeword(ctx: FieldCtx, codeword: torch.Tensor, beta: torch.Tensor, inv_x: torch.Tensor,
@@ -107,7 +113,10 @@ def _level_offset(size: int, lvl: int) -> int:
 
 def _gather_openings(ctx: FieldCtx, codewords, trees, vidx, sidx) -> tuple[np.ndarray, np.ndarray]:
     """Every round's opened values (plain limbs) and Merkle siblings,
-    gathered on the codewords' device and copied to the host at once."""
+    gathered on the codewords' device and copied to the host at once
+    (nothing to open after no commit round)."""
+    if not codewords:
+        return np.zeros((0, ctx.L), np.int32), np.zeros((0, 32), np.uint8)
     vals = arith.from_mont(ctx, torch.cat([cw[i] for cw, i in zip(codewords, vidx)]))
     sibs = torch.cat([t[i] for t, i in zip(trees, sidx)])
     both = torch.cat([vals.view(torch.uint8).reshape(-1), sibs.reshape(-1)]).cpu().numpy()
@@ -126,30 +135,62 @@ def _query_indices(transcript: Transcript, num: int, domain_size: int) -> list[i
     return out
 
 
+def _root_challenge(ctx: FieldCtx, sponge: DeviceSponge, root: torch.Tensor) -> torch.Tensor:
+    """Absorb a round's Merkle root ([32] uint8 on the sponge's device) and
+    squeeze beta: one K7 launch; beta's [L] Montgomery limbs stay there."""
+    beta = torch.empty(ctx.L, dtype=torch.int32, device=root.device)
+    digest = torch.empty(32, dtype=torch.uint8, device=root.device)
+    sponge_step(sponge.state, sponge.buf, sponge.pos, root, digest, beta, ctx)
+    return beta
+
+
+def _commit_round(ctx: FieldCtx, sponge: DeviceSponge, codeword: torch.Tensor, inv_x: torch.Tensor,
+                  inv2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One commit round on the codeword's device, nothing read back: the
+    round's flat Merkle tree (K1 leaf bytes, K5 levels), beta from its root
+    on the device sponge (K7) and the codeword folded at beta (K1, K3)."""
+    tree = merkle_tree_flat(field_leaf_bytes(ctx, codeword))
+    beta = _root_challenge(ctx, sponge, tree[-1])
+    return tree, beta, fold_codeword(ctx, codeword, beta, inv_x, inv2)
+
+
+def _hand_back(ctx: FieldCtx, transcript: Transcript, sponge: DeviceSponge, roots: list[torch.Tensor],
+               final: torch.Tensor) -> tuple[list[bytes], list[int]]:
+    """After the commit rounds on a sponge seeded from the transcript (one
+    root a round): one copy of the sponge's state, the final codeword, the
+    roots and the sponge's tail; the transcript goes on from the sponge, its
+    fill level from :func:`final_pos` (not read back).  Returns (the roots'
+    bytes, the final codeword's ints)."""
+    parts = [sponge.state.view(torch.uint8), final.reshape(-1).view(torch.uint8), *roots, sponge.buf]
+    sizes = [parts[0].numel(), parts[1].numel(), 32 * len(roots), sponge.buf.numel()]
+    state, final_h, roots_h, buf = torch.cat(parts).cpu().split(sizes)
+    pos = final_pos(len(transcript._hasher._buf), len(roots), 32)
+    transcript._hasher = DeviceSponge.to_host(state.view(torch.int64), buf, pos)
+    return ([row.tobytes() for row in roots_h.numpy().reshape(-1, 32)],
+            ctx.to_ints(final_h.view(torch.int32).view(final.shape)))
+
+
 def prove(config: FriConfig, codeword, transcript: Transcript, device=None) -> FriProof:
     """codeword: [N, L] Montgomery evaluations over the size-N domain (a
     tensor keeps its device), or host ints (put on ``device``, by default
-    the card)."""
+    the card).  The commit phase runs on the codeword's device with the
+    transcript on the device sponge; the host transcript takes over again
+    for the final codeword and the query phase."""
     ctx = config.ctx
     if not isinstance(codeword, torch.Tensor):
         codeword = ctx.array(list(codeword), device=device)
     assert codeword.shape[0] == 1 << config.domain_log2
     inv_x, inv2 = config.fold_tables(codeword.device)
 
-    codewords, trees, roots = [codeword], [], []
+    sponge = DeviceSponge.from_host(transcript._hasher, codeword.device)
+    codewords, trees = [codeword], []
     current = codeword
     for r in range(config.num_rounds):
-        tree = merkle_tree_flat(field_leaf_bytes(ctx, current))
-        root = tree[-1].cpu().numpy().tobytes()
-        transcript.append(root)
-        beta = transcript.random_challenge_as_field_element(ctx)
-        current = fold_codeword(ctx, current, ctx.scalar(beta, device=codeword.device), inv_x[:: 1 << r],
-                                 inv2)
+        tree, _, current = _commit_round(ctx, sponge, current, inv_x[:: 1 << r], inv2)
         trees.append(tree)
-        roots.append(root)
         codewords.append(current)
+    roots, final_codeword = _hand_back(ctx, transcript, sponge, [t[-1] for t in trees], current)
 
-    final_codeword = ctx.to_ints(current)
     for v in final_codeword:
         transcript.append(ctx.to_bytes_be(v))
     return _query_phase(config, codewords, trees, roots, final_codeword, transcript)
