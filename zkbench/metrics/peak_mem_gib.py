@@ -1,0 +1,6 @@
+"""The card's peak of allocated memory over the window
+(``torch.cuda.max_memory_allocated`` after ``reset_peak_memory_stats``)."""
+
+
+def read(run):
+    return run.peak_bytes / 2**30 if run.peak_bytes else None
